@@ -9,7 +9,7 @@ against the accelerated engine table-for-table.
 
     python examples/large_k_workflow.py [outdir]
 
-Runs on whatever backend JAX finds (TPU or CPU) — every path is exact, so
+Runs on whatever backend JAX finds (GPU or CPU) — every path is exact, so
 the outputs are identical either way.
 """
 
@@ -24,12 +24,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 def main(argv):
     import numpy as np
 
-    outdir = pathlib.Path(argv[1] if len(argv) > 1 else "/tmp/kmer_demo")
+    outdir = pathlib.Path(argv[1] if len(argv) > 1 else "bench_out/kmer_demo")
     outdir.mkdir(parents=True, exist_ok=True)
     fasta_path = outdir / "demo.fasta"
     k = 21
 
-    from dna_kmeres_parallel_tpu.utils.datagen import random_fasta
+    from dna_kmeres_parallel.utils.datagen import random_fasta
 
     total = random_fasta(str(fasta_path), n_seqs=8, seq_len=50_000, seed=3,
                          invalid_frac=0.001)
@@ -37,8 +37,8 @@ def main(argv):
     # 1) Streamed, checkpointed counting (KmerConfig.device_sort=None auto-
     #    routes to the encode-only device program when the native radix
     #    compactor is built).
-    from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+    from dna_kmeres_parallel.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     counter = StreamingCounter(
         KmerConfig(k=k), checkpoint_path=str(outdir / "ck.npz")
@@ -53,7 +53,7 @@ def main(argv):
 
     # 2) Point lookups (canonical-aware when the table is canonical).
     some = [result.codes[i] for i in range(0, result.codes.shape[0], max(result.codes.shape[0] // 3, 1))][:3]
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.utils import codec
 
     for code in some:
         kmer = codec.code_to_kmer(int(code), k)
@@ -65,7 +65,7 @@ def main(argv):
 
     # 4) Cross-check the C++ host engine (no device at all): tables must be
     #    bit-identical — the three-way differential the CLI selftest runs.
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     if native.available():
         parsed = native.parse_fasta_native(str(fasta_path))

@@ -9,7 +9,7 @@ to be diffed. This script does exactly that with this framework's engines:
   python examples/reference_parity_demo.py input.fasta outdir/
 
 writes outdir/sequential_results.csv (NumPy oracle), outdir/
-parallel_results.csv (TPU engine), outdir/min_distances.csv (the
+parallel_results.csv (device engine), outdir/min_distances.csv (the
 printMinDistances TSV, utils.h:52-63), diffs the two CSVs, and prints a
 JSON verdict — the dual-engine differential the reference intended, as an
 executable check.
@@ -31,13 +31,10 @@ def main(argv):
     fasta_path, outdir = argv[1], pathlib.Path(argv[2])
     outdir.mkdir(parents=True, exist_ok=True)
 
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-    from dna_kmeres_parallel_tpu.ops.runtime import apply_platform_env
-    from dna_kmeres_parallel_tpu.utils import fasta, io
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
-
-    apply_platform_env()
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.models.engine import KmerEngine
+    from dna_kmeres_parallel.utils import fasta, io
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     # Reference semantics: k=3 (kernels.h:14), MAX_SEQS=100 cap (main.cu:30).
     records = fasta.parse_fasta(fasta_path, max_seqs=100)
@@ -51,7 +48,7 @@ def main(argv):
     engine = KmerEngine(KmerConfig(k=3, max_seqs=100))
     t0 = time.perf_counter()
     parallel = engine.distance_sequences(seqs).packed
-    t_tpu = time.perf_counter() - t0
+    t_dev = time.perf_counter() - t0
     io.write_distances_csv(outdir / "parallel_results.csv", parallel)
     io.write_min_distances_tsv(outdir / "min_distances.csv", parallel, len(seqs))
 
@@ -63,7 +60,7 @@ def main(argv):
                 "n_seqs": len(seqs),
                 "n_pairs": int(sequential.shape[0]),
                 "elapsed_serial_s": round(t_cpu, 4),
-                "elapsed_parallel_s": round(t_tpu, 4),
+                "elapsed_parallel_s": round(t_dev, 4),
                 "csvs_byte_identical": a == b,
             }
         )

@@ -5,7 +5,7 @@ Build the sanitized library and run this under LD_PRELOAD:
 
     g++ -O1 -g -march=native -std=c++17 -pthread -fPIC -shared \
         -fsanitize=address,undefined -fno-sanitize-recover=all \
-        -o /tmp/libfasta_asan.so dna_kmeres_parallel_tpu/native/fastaparse.cpp -lz
+        -o bench_out/libfasta_asan.so dna_kmeres_parallel/native/fastaparse.cpp -lz
     LD_PRELOAD=$(gcc -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0 \
         python scripts/asan_drive.py
 
@@ -16,7 +16,8 @@ table merge, parser, packers, dense counter, sorted compactors.
 import ctypes, sys
 import numpy as np
 
-lib = ctypes.CDLL("/tmp/libfasta_asan.so")
+os.makedirs("bench_out", exist_ok=True)
+lib = ctypes.CDLL("bench_out/libfasta_asan.so")
 u8p = ctypes.POINTER(ctypes.c_uint8)
 u32p = ctypes.POINTER(ctypes.c_uint32)
 u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -119,12 +120,12 @@ class _KpFasta(ctypes.Structure):
     ]
 
 lib.kp_parse_fasta_range.restype = ctypes.c_int
-with open("/tmp/asan.fasta", "w") as f:
+with open("bench_out/asan.fasta", "w") as f:
     for i in range(5):
         f.write(f">s{i}\n")
         f.write("".join(np.random.default_rng(i).choice(list("ACGTN"), 173)) + "\n\n")
 out = ctypes.POINTER(_KpFasta)()
-rc = lib.kp_parse_fasta_range(b"/tmp/asan.fasta", 0, -1, 0, ctypes.byref(out))
+rc = lib.kp_parse_fasta_range(b"bench_out/asan.fasta", 0, -1, 0, ctypes.byref(out))
 assert rc == 0 and out.contents.n_seqs == 5
 stream = np.ctypeslib.as_array(out.contents.stream, shape=(int(out.contents.stream_len),)).copy()
 lib.kp_free_fasta(out)

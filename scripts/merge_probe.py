@@ -36,7 +36,7 @@ def make_rows(n: int, m: int, kbits: int, hi_dtype, seed: int):
 
 
 def run_one(n: int, m: int, kbits: int, hi_dtype, reps: int = 3) -> float:
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     words, codes = make_rows(n, m, kbits, hi_dtype, seed=1)
     # Correctness: counts must equal the global bincount.

@@ -21,21 +21,18 @@ import time
 def main():
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     total = int(sys.argv[2]) if len(sys.argv) > 2 else 16 << 20
-    cache = os.path.expanduser("~/.cache/dna_kmeres_tpu_xla")
-    os.makedirs(cache, exist_ok=True)
     import jax
 
-    from dna_kmeres_parallel_tpu.ops.runtime import apply_platform_env
+    from dna_kmeres_parallel.utils.cache import enable_compile_cache
 
-    apply_platform_env()
-    jax.config.update("jax_compilation_cache_dir", cache)
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
 
-    from dna_kmeres_parallel_tpu.parallel import sharded_count as sc
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.parallel import sharded_count as sc
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     n_dev = len(jax.devices())
     sizes = [d for d in (1, 2, 4, 8, 16, 32) if d <= n_dev]

@@ -5,7 +5,7 @@ threaded two-pointer pair min-sums + float32 finish + CSV), with a
 host-thread scaling curve and sampled exactness vs the oracle.
 
 Host-only path by design: the pairwise sorted-table intersection is an
-irregular two-pointer merge (data-dependent advance, no MXU shape) — see
+irregular two-pointer merge (data-dependent advance, no matmul shape) — see
 models/sparse_engine.distance_sparse_packed.
 
 Usage: python scripts/sparse_distance_scale.py [S] [seq_len] [k]
@@ -24,9 +24,9 @@ def main() -> int:
     seq_len = int(sys.argv[2]) if len(sys.argv) > 2 else 300
     k = int(sys.argv[3]) if len(sys.argv) > 3 else 21
 
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.models import oracle, sparse_engine
-    from dna_kmeres_parallel_tpu.utils import io, triangular
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.models import oracle, sparse_engine
+    from dna_kmeres_parallel.utils import io, triangular
 
     rng = np.random.default_rng(54018)
     alpha = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -41,7 +41,7 @@ def main() -> int:
               "native": native.available()}
 
     # Phase 1: per-sequence tables (the engine's own builder, so the
-    # benchmark measures the path production takes — incl. TPU routing
+    # benchmark measures the path production takes — incl. device routing
     # for long sequences).
     t0 = time.perf_counter()
     lengths = np.array([len(s) for s in seqs], dtype=np.int64)
@@ -63,7 +63,8 @@ def main() -> int:
     # Phase 3: float32 finish + CSV (bounded memory, native %f writer).
     t0 = time.perf_counter()
     out = sparse_engine.finish_distances_packed(sums, lengths, k)
-    csv_path = "/tmp/sparse_dist_scale.csv"
+    csv_path = "bench_out/sparse_dist_scale.csv"
+    os.makedirs("bench_out", exist_ok=True)
     with open(csv_path, "wb") as f:
         f.write(native.format_f6(out))
     report["finish_csv_s"] = round(time.perf_counter() - t0, 3)

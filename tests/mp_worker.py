@@ -19,10 +19,9 @@ def main() -> int:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from dna_kmeres_parallel_tpu.parallel import multihost
+    from dna_kmeres_parallel.parallel import multihost
 
     multihost.init_distributed(
         coordinator_address=f"127.0.0.1:{port}",
@@ -34,7 +33,7 @@ def main() -> int:
     import numpy as np
     from jax.sharding import Mesh
 
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     mesh = Mesh(np.array(jax.devices()).reshape(-1), ("data",))
     mode = sys.argv[7] if len(sys.argv) > 7 else "dense"
@@ -143,8 +142,8 @@ def main() -> int:
     from jax.experimental import multihost_utils
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.parallel import bucketed
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.parallel import bucketed
 
     parsed = native.parse_fasta_native(fasta_path)
     shards, n_own = bucketed.shard_stream_with_halo(parsed.stream, k, mesh)
@@ -162,7 +161,7 @@ def main() -> int:
         # its own device's plane and writes ITS OWN sub-table (owners
         # partition the code space, so the test-side merge of per-process
         # npz files reconstructs the global table exactly).
-        from dna_kmeres_parallel_tpu.models.sparse_engine import (
+        from dna_kmeres_parallel.models.sparse_engine import (
             compact_unsorted,
         )
 

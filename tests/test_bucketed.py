@@ -1,14 +1,15 @@
 """Bucket-sharded (all_to_all) sparse counting on the virtual 8-device mesh."""
 
 import jax
+import jax.extend.core
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.parallel import bucketed
-from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-from dna_kmeres_parallel_tpu.utils import codec
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.parallel import bucketed
+from dna_kmeres_parallel.parallel.mesh import make_mesh
+from dna_kmeres_parallel.utils import codec
 
 
 @pytest.fixture(scope="module")
@@ -75,8 +76,8 @@ def test_bucketed_shard_boundary_halo(mesh8):
 
 def test_bucketed_matches_single_host_sparse(make_dna, mesh8):
     # Cross-check against the single-device sparse engine.
-    from dna_kmeres_parallel_tpu.models.sparse_engine import SparseKmerEngine
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+    from dna_kmeres_parallel.models.sparse_engine import SparseKmerEngine
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     k = 21
     seqs = [make_dna(400) for _ in range(3)]
@@ -138,10 +139,10 @@ def test_bucketed_non_pow2_devices(make_dna, n_dev, k):
     # Non-power-of-two D: the top d_bits can exceed D-1 and must clamp to
     # the last owner (unclamped owners routed codes to nonexistent devices
     # and dropped them silently).
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     s = make_dna(900, invalid_frac=0.02)
     flat = codec.encode_bases(s)
@@ -162,10 +163,10 @@ def test_bucketed_non_pow2_devices(make_dna, n_dev, k):
 def test_bucketed_k16_lo_owner_path(make_dna):
     # k=16: hi has zero bits, owners come from lo (use_hi=False) — the
     # general 3-key sort path.
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     s = make_dna(600, invalid_frac=0.02)
     flat = codec.encode_bases(s)
@@ -188,10 +189,10 @@ def test_bucketed_non_pow2_no_overflow_at_scale(make_dna):
     # to (2^d_bits - D + 1)x the uniform share to the last owner; at D=5,
     # k=24, 20k bases the send bucket deterministically overflowed. The
     # balanced multiply-shift partition must not.
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     s = make_dna(20000)
     flat = codec.encode_bases(s)
@@ -221,10 +222,10 @@ def test_bucketed_non_pow2_no_overflow_at_scale(make_dna):
 def test_bucket_raw_exchange_matches_oracle(make_dna, k, canonical, owner_mode):
     """RAW-exchange variant (one owner-key sort + host radix per owner
     shard) is exact vs the oracle across key layouts and owner modes."""
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     seqs = [make_dna(140 + 29 * i, invalid_frac=0.02) for i in range(4)]
     flat = codec.concat_with_sentinels(seqs)
@@ -239,9 +240,9 @@ def test_bucket_raw_exchange_matches_oracle(make_dna, k, canonical, owner_mode):
 
 def test_bucket_raw_matches_aggregated(make_dna):
     """Raw and aggregated exchanges produce bit-identical tables."""
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     import jax.numpy as jnp
 
@@ -262,9 +263,9 @@ def test_bucket_raw_matches_aggregated(make_dna):
 def test_bucket_raw_overflow_on_skew(make_dna):
     """A homopolymer routes every window to one owner: the raw exchange's
     window-denominated capacity must overflow DETECTABLY, not corrupt."""
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     flat = codec.encode_bases("A" * 4000)
     mesh = make_mesh(8)
@@ -385,13 +386,13 @@ def test_superkmer_all_invalid_and_empty(mesh8):
 
 @pytest.mark.parametrize("exchange", ["auto", "raw", "agg", "super"])
 def test_bucket_auto_matches_oracle(make_dna, mesh8, exchange):
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
 
     k = 21
     seqs = [make_dna(160 + 13 * i, invalid_frac=0.02) for i in range(4)]
     flat = _flat(seqs)
     codes, cnts = bucketed.count_bucket_auto(
-        flat, k, False, mesh8, exchange=exchange, pallas=None
+        flat, k, False, mesh8, exchange=exchange
     )
     want = count_table_any_k(seqs, k, False)
     got = {codec.code_to_kmer(int(c), k): int(n) for c, n in zip(codes, cnts)}
@@ -405,10 +406,8 @@ def test_bucket_auto_falls_back_on_skew(mesh8):
     k = 21
     flat = codec.encode_bases("A" * 4096)
     with pytest.raises(OverflowError):
-        bucketed.count_bucket_sharded_raw(flat, k, False, mesh8, pallas=None)
-    codes, cnts = bucketed.count_bucket_auto(
-        flat, k, False, mesh8, pallas=None
-    )
+        bucketed.count_bucket_sharded_raw(flat, k, False, mesh8)
+    codes, cnts = bucketed.count_bucket_auto(flat, k, False, mesh8)
     assert codes.tolist() == [0]
     assert cnts.tolist() == [4096 - k + 1]
 
@@ -420,18 +419,18 @@ def test_raw_exchange_prefix_fast_matches_engine(make_dna, k):
     # lo's top bits) must produce the exact single-chip engine table.
     # 80 Kbase streams also cover all-T windows (lo == 0xFFFFFFFF at
     # k >= 16, which must still sort strictly before the hi sentinel).
-    from dna_kmeres_parallel_tpu.models.sparse_engine import (
+    from dna_kmeres_parallel.models.sparse_engine import (
         SparseKmerEngine,
     )
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     s = make_dna(80_000, invalid_frac=0.01) + "T" * 40
     flat = codec.encode_bases(s)
     mesh = make_mesh(8)
     codes, counts = bucketed.count_bucket_sharded_raw(
-        flat, k, False, mesh, pallas=None
+        flat, k, False, mesh
     )
-    want = SparseKmerEngine(KmerConfig(k=k, use_pallas=False)).count_stream(
+    want = SparseKmerEngine(KmerConfig(k=k)).count_stream(
         flat, flat.shape[0], 1
     )
     assert np.array_equal(codes, want.codes)
@@ -440,33 +439,28 @@ def test_raw_exchange_prefix_fast_matches_engine(make_dna, k):
 
 @pytest.mark.parametrize("k,canonical,owner_mode", [
     (13, False, "prefix"),   # single-word band (owner bits in lo)
-    (21, False, "prefix"),   # u16 hi band (widen/narrow across kernel)
+    (21, False, "prefix"),   # u16 hi band
     (21, True, "prefix"),
     (31, False, "prefix"),   # u32 hi band — config 5
-    (21, False, "minimizer"),  # owner carried as explicit row-sort key
+    (21, False, "minimizer"),  # owner carried as the sort key
     (31, False, "minimizer"),
 ])
-def test_bucket_raw_row_partition_matches_default(make_dna, monkeypatch,
-                                                  k, canonical,
+def test_bucket_raw_row_partition_matches_default(make_dna, k, canonical,
                                                   owner_mode):
-    """r5 row-partition route (per-row sort + Pallas dynamic-roll
-    segment extraction, KMER_TPU_ROW_PARTITION=1) must produce the
-    bit-identical table to the default global-sort raw exchange."""
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    """The raw exchange (owner grouping + host radix per owner) must
+    produce the bit-identical table to the aggregated exchange (local
+    RLE + two multi-key sorts) in every key-word band and owner mode."""
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
     seqs = [make_dna(150 + 31 * i, invalid_frac=0.02) for i in range(4)]
     flat = codec.concat_with_sentinels(seqs)
     mesh = make_mesh(8)
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION", "0")
-    base = bucketed.count_bucket_sharded_raw(
-        flat, k, canonical, mesh, owner_mode=owner_mode
+    base = bucketed.count_bucket_auto(
+        flat, k, canonical, mesh, owner_mode=owner_mode, exchange="agg"
     )
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION", "1")
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION_LEN", "256")
     got = bucketed.count_bucket_sharded_raw(
         flat, k, canonical, mesh, owner_mode=owner_mode
     )
@@ -482,34 +476,30 @@ def test_bucket_raw_row_partition_matches_default(make_dna, monkeypatch,
 
 def test_bucket_raw_positional_runs_survive_row_route(make_dna,
                                                       monkeypatch):
-    """A positional same-owner run (homopolymer inside random data) does
-    NOT overflow the row route: the v2 residue-permuted window order
-    scatters consecutive positions across rows, so only VALUE skew (an
-    owner's global share past the 2x margin) can blow a row. The table
-    stays exact with no fallback call."""
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    """A positional same-owner run (homopolymer inside random data) within
+    the per-owner slack of the send capacity (2x the uniform share + 64)
+    goes through the raw exchange: one exchange call, no overflow, exact
+    table."""
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION", "1")
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION_LEN", "256")
-    seqs = [make_dna(700), "A" * 600, make_dna(700)]
+    seqs = [make_dna(700), "A" * 100, make_dna(700)]
     flat = codec.concat_with_sentinels(seqs)
     mesh = make_mesh(8)
     calls = []
     real = bucketed.exchange_words_bucket_sharded
 
     def spy(*a, **kw):
-        calls.append(kw.get("row_partition"))
+        calls.append(1)
         return real(*a, **kw)
 
     monkeypatch.setattr(bucketed, "exchange_words_bucket_sharded", spy)
     codes, counts = bucketed.count_bucket_sharded_raw(
         flat, 21, False, mesh
     )
-    assert calls == [None], calls  # no degradation needed
+    assert calls == [1], calls
     want = count_table_any_k(seqs, 21)
     got = {
         codec.code_to_kmer(int(c), 21): int(n)
@@ -520,20 +510,13 @@ def test_bucket_raw_positional_runs_survive_row_route(make_dna,
 
 def test_bucket_raw_row_overflow_retries_global_then_raises(make_dna,
                                                             monkeypatch):
-    """Value skew past every margin (one owner holding ~half of all
-    windows): the driver must TRY the row route, DEGRADE once to the
-    global-sort program, and only then raise the overflow error."""
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    """Value skew past the send capacity (one owner holding ~half of all
+    windows): the raw driver runs the exchange once and raises the
+    overflow error (count_bucket_auto then takes the aggregated one)."""
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION", "1")
-    monkeypatch.setenv("KMER_TPU_ROW_PARTITION_LEN", "256")
-    # Send capacity is provisioned from the PADDED plane slots (16384
-    # per shard at the test chunk), so overflowing the GLOBAL route too
-    # needs > 2*16384/8 + 64 = 4160 same-owner windows per shard: a
-    # 40-Kbase homopolymer puts ~5000 owner-0 windows on every shard.
     seqs = [make_dna(2000), "A" * 40000, make_dna(2000)]
     flat = codec.concat_with_sentinels(seqs)
     mesh = make_mesh(8)
@@ -541,10 +524,60 @@ def test_bucket_raw_row_overflow_retries_global_then_raises(make_dna,
     real = bucketed.exchange_words_bucket_sharded
 
     def spy(*a, **kw):
-        calls.append(kw.get("row_partition"))
+        calls.append(1)
         return real(*a, **kw)
 
     monkeypatch.setattr(bucketed, "exchange_words_bucket_sharded", spy)
     with pytest.raises(OverflowError):
         bucketed.count_bucket_sharded_raw(flat, 21, False, mesh)
-    assert calls == [None, False], calls
+    assert calls == [1], calls
+
+
+def _cumulative_ops_on_constants(closed_jaxpr) -> list[str]:
+    """Cumulative ops (cumsum, cummin, ...) whose operand is a constant of
+    the program (derived from literals alone)."""
+    found = []
+
+    def walk(jaxpr, const_in=()):
+        const = set(const_in)
+        for eqn in jaxpr.eqns:
+            ins = [
+                v for v in eqn.invars if not isinstance(v, jax.extend.core.Literal)
+            ]
+            if eqn.primitive.name.startswith("cum") and all(
+                v in const for v in ins
+            ):
+                found.append(eqn.primitive.name)
+            if all(v in const for v in ins) and not eqn.params.get("jaxpr"):
+                const.update(eqn.outvars)
+            for p in eqn.params.values():
+                inner = getattr(p, "jaxpr", p)
+                if hasattr(inner, "eqns"):
+                    walk(
+                        inner,
+                        [
+                            iv
+                            for iv, ov in zip(inner.invars, eqn.invars)
+                            if not isinstance(ov, jax.extend.core.Literal)
+                            and ov in const
+                        ],
+                    )
+
+    walk(closed_jaxpr.jaxpr)
+    return found
+
+
+def test_exchange_has_no_prefix_sum_over_constants(mesh8):
+    """XLA's GPU compiler constant-folds a cumsum whose operand is a
+    constant as an O(n^2) reduce-window — at millions of windows per
+    shard the aggregated exchange then never finishes compiling. The
+    exchange must derive unit run lengths from run boundaries instead."""
+    shards = jnp.zeros((8, 4096 + 30), jnp.uint8)
+    n_own = jnp.full((8,), 4096, jnp.int32)
+    jaxpr = jax.make_jaxpr(
+        lambda s, n: bucketed.count_bucket_sharded(s, n, 31, False, mesh8)
+    )(shards, n_own)
+    assert _cumulative_ops_on_constants(jaxpr) == []
+    # The detector itself sees a prefix sum of constant ones.
+    bad = jax.make_jaxpr(lambda x: jnp.cumsum(jnp.ones(8, jnp.int32)) + x)(1)
+    assert _cumulative_ops_on_constants(bad) == ["cumsum"]

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.utils import codec
+from dna_kmeres_parallel.utils import codec
 
 
 def test_encode_decode_roundtrip(make_dna):

@@ -14,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import distance_stream, oracle, sparse_engine
-from dna_kmeres_parallel_tpu.utils import io as io_mod
+from dna_kmeres_parallel.models import distance_stream, oracle, sparse_engine
+from dna_kmeres_parallel.utils import io as io_mod
 
 
 @pytest.fixture
@@ -71,16 +71,16 @@ def test_sparse_stream_checkpoint_mismatch_refused(tmp_path, seqs):
         )
 
 
-@pytest.mark.parametrize("impl", ["jnp", "mxu", "pallas"])
+@pytest.mark.parametrize("impl", ["jnp", "int8", "pallas"])
 def test_sparse_stream_union_route_exact(tmp_path, rng, make_dna,
                                          monkeypatch, impl):
     genome = make_dna(1500)
     starts = rng.integers(0, len(genome) - 120 + 1, size=11)
     reads = [genome[s : s + 120] for s in starts]
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
-    monkeypatch.setenv("KMER_TPU_UNION_IMPL", impl)
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_UNION_IMPL", impl)
     if impl == "pallas":
-        monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+        monkeypatch.setenv("KMER_PALLAS_INTERPRET", "1")
     info = {}
     out = tmp_path / "d.csv"
     r = sparse_engine.distance_sparse_stream_to_csv(
@@ -93,19 +93,19 @@ def test_sparse_stream_union_route_exact(tmp_path, rng, make_dna,
 
 def test_sparse_stream_union_mesh_byte_identical(tmp_path, rng, make_dna,
                                                  monkeypatch):
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
 
     genome = make_dna(1500)
     starts = rng.integers(0, len(genome) - 120 + 1, size=10)
     reads = [genome[s : s + 120] for s in starts]
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
-    monkeypatch.setenv("KMER_TPU_UNION_IMPL", "mxu")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_UNION_IMPL", "int8")
     out = tmp_path / "d.csv"
     info = {}
     sparse_engine.distance_sparse_stream_to_csv(
         reads, 21, out, panel_rows=4, mesh=make_mesh(8), info=info
     )
-    assert info["route"] == "union/mxu"
+    assert info["route"] == "union/int8"
     assert out.read_bytes() == _ref_csv(tmp_path, reads, 21)
 
 
@@ -144,8 +144,8 @@ def test_balanced_row_splits_properties():
 
 
 def test_cli_sparse_stream_checkpointed(tmp_path, seqs):
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.utils import fasta
 
     path = tmp_path / "in.fasta"
     fasta.write_fasta(path, [(f">s{i}", s) for i, s in enumerate(seqs)])
@@ -174,17 +174,17 @@ def test_sparse_stream_union_mesh_non_pow2(tmp_path, rng, make_dna,
     # Non-power-of-two mesh: the union matrix's power-of-two row count
     # does not divide the axis — the panel path must pad partner rows
     # (zero rows are exact) instead of crashing.
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
 
     genome = make_dna(1200)
     starts = rng.integers(0, len(genome) - 110 + 1, size=9)
     reads = [genome[s : s + 110] for s in starts]
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
-    monkeypatch.setenv("KMER_TPU_UNION_IMPL", "mxu")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_UNION_IMPL", "int8")
     out = tmp_path / "d.csv"
     info = {}
     sparse_engine.distance_sparse_stream_to_csv(
         reads, 21, out, panel_rows=4, mesh=make_mesh(6), info=info
     )
-    assert info["route"] == "union/mxu"
+    assert info["route"] == "union/int8"
     assert out.read_bytes() == _ref_csv(tmp_path, reads, 21)

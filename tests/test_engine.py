@@ -5,14 +5,14 @@ import json
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-from dna_kmeres_parallel_tpu.utils import fasta, io
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.models.engine import KmerEngine
+from dna_kmeres_parallel.utils import fasta, io
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 def _total_hist(seqs, k, canonical=False):
-    import dna_kmeres_parallel_tpu.utils.codec as codec
+    import dna_kmeres_parallel.utils.codec as codec
 
     return sum(
         (oracle.count_vector(s, k, canonical) for s in seqs),
@@ -109,7 +109,7 @@ def test_min_distances_tsv_format(tmp_path):
 
 
 def test_cli_count_and_distance(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     records = [(f">r{i}", make_dna(100)) for i in range(4)]
     path = tmp_path / "in.fasta"
@@ -133,7 +133,7 @@ def test_cli_count_and_distance(tmp_path, make_dna, capsys):
 def test_cli_multi_file_and_glob(tmp_path, make_dna, capsys):
     # Multiple inputs / globs (the reference hard-codes ONE path): counts
     # aggregate across files; max-seqs caps across the whole set.
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     seqs_a = [make_dna(90) for _ in range(3)]
     seqs_b = [make_dna(70) for _ in range(2)]
@@ -164,7 +164,7 @@ def test_cli_multi_file_and_glob(tmp_path, make_dna, capsys):
 
 
 def test_cli_stream_multi_file(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     seqs_a = [make_dna(150) for _ in range(2)]
     seqs_b = [make_dna(110)]
@@ -182,7 +182,7 @@ def test_cli_stream_multi_file(tmp_path, make_dna, capsys):
 
 
 def test_cli_selftest(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "in.fasta"
     fasta.write_fasta(path, [(f">r{i}", make_dna(80)) for i in range(3)])
@@ -191,7 +191,7 @@ def test_cli_selftest(tmp_path, make_dna, capsys):
     verdict = json.loads(capsys.readouterr().out)
     assert verdict["counts_equal"] and verdict["distances_equal"]
     # three-way: the C++ host engine is part of the verdict when built
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     if native.available():
         assert verdict["native_counts_equal"] is True
@@ -205,7 +205,7 @@ def test_cli_selftest(tmp_path, make_dna, capsys):
 
 
 def test_cli_engines_agree(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "in.fasta"
     fasta.write_fasta(path, [(f">r{i}", make_dna(150)) for i in range(3)])
@@ -222,7 +222,7 @@ def test_cli_engines_agree(tmp_path, make_dna, capsys):
 
 
 def test_cli_stream_with_checkpoint(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "s.fasta"
     fasta.write_fasta(path, [(f">r{i}", make_dna(300)) for i in range(4)])
@@ -265,7 +265,7 @@ def test_distance_stream_to_csv_matches(tmp_path, make_dna):
 
 
 def test_cli_info(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "i.fasta"
     fasta.write_fasta(path, [(">a", "ACGTN"), (">b", make_dna(50))])
@@ -306,7 +306,7 @@ def test_reference_parity_demo_script(tmp_path, make_dna):
 
 
 def test_cli_count_npz_output(tmp_path, make_dna, capsys):
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "n.fasta"
     fasta.write_fasta(path, [(">a", make_dna(200))])
@@ -327,7 +327,7 @@ def test_cli_count_npz_output(tmp_path, make_dna, capsys):
 def test_pack_input_equals_unpacked(make_dna):
     # 2-bit packed device feed (pack_input) must be bit-identical to the
     # uint8 feed across dense and sparse routes, invalid chars included.
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
+    from dna_kmeres_parallel.models.engine import KmerEngine
 
     seqs = [make_dna(300 + 17 * i, invalid_frac=0.05) for i in range(4)]
     for k in (5, 11):
@@ -339,8 +339,8 @@ def test_pack_input_equals_unpacked(make_dna):
 def test_unpack_stream_roundtrip(make_dna):
     import jax.numpy as jnp
 
-    from dna_kmeres_parallel_tpu.ops import encode as encode_ops
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.ops import encode as encode_ops
+    from dna_kmeres_parallel.utils import codec
 
     s = make_dna(512, invalid_frac=0.1)
     bases = codec.encode_bases(s)
@@ -407,7 +407,7 @@ def test_distance_stream_checkpoint_resume(tmp_path, make_dna):
 def test_cli_distance_mesh_and_checkpoint(tmp_path, make_dna, capsys):
     import json as json_mod
 
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "m.fasta"
     seqs = [make_dna(60 + 5 * i) for i in range(9)]
@@ -447,7 +447,7 @@ def test_cli_count_mesh_matches_single(tmp_path, make_dna, capsys):
     # must produce the identical table to the single-chip count.
     import json as json_mod
 
-    from dna_kmeres_parallel_tpu import cli
+    from dna_kmeres_parallel import cli
 
     path = tmp_path / "cm.fasta"
     seqs = [make_dna(200 + 11 * i, invalid_frac=0.02) for i in range(4)]
@@ -497,14 +497,14 @@ def test_distance_checkpoint_legacy_formats_refused(tmp_path, make_dna):
 
 
 def test_distance_mxu_route_bit_identical(tmp_path, make_dna, monkeypatch):
-    # The MXU threshold distance route (r4): forced on (CPU), the packed
+    # The int8 threshold distance route: forced on (CPU), the packed
     # distances and the streamed CSV must be byte-identical to the
     # default route's, single-chip and mesh.
     seqs = [make_dna(70 + 9 * i, invalid_frac=0.02) for i in range(13)]
     base = KmerEngine(KmerConfig(k=4)).distance_sequences(seqs).packed
-    monkeypatch.setenv("KMER_TPU_DIST_MXU", "1")
+    monkeypatch.setenv("KMER_DIST_INT8", "1")
     eng = KmerEngine(KmerConfig(k=4))
-    assert eng._mxu_dist_cmax(eng.counts_matrix(seqs)) is not None
+    assert eng._int8_dist_cmax(eng.counts_matrix(seqs)) is not None
     got = eng.distance_sequences(seqs).packed
     assert np.array_equal(base, got)
     meshed = (
@@ -515,54 +515,61 @@ def test_distance_mxu_route_bit_identical(tmp_path, make_dna, monkeypatch):
     assert np.array_equal(base, meshed)
     a, b = tmp_path / "a.csv", tmp_path / "b.csv"
     KmerEngine(KmerConfig(k=4)).distance_stream_to_csv(seqs, a, panel_rows=5)
-    monkeypatch.setenv("KMER_TPU_DIST_MXU", "0")
+    monkeypatch.setenv("KMER_DIST_INT8", "0")
     KmerEngine(KmerConfig(k=4)).distance_stream_to_csv(seqs, b, panel_rows=5)
     assert a.read_bytes() == b.read_bytes()
 
 
 def test_distance_mxu_gate_respects_cmax_limit(make_dna, monkeypatch):
-    monkeypatch.setenv("KMER_TPU_DIST_MXU", "1")
+    monkeypatch.setenv("KMER_DIST_INT8", "1")
     eng = KmerEngine(KmerConfig(k=2))
     # k=2, long sequence: counts far above the crossover limit -> None.
     counts = eng.counts_matrix([make_dna(4000)])
     assert int(counts.max()) > 64
-    assert eng._mxu_dist_cmax(counts) is None
+    assert eng._int8_dist_cmax(counts) is None
 
 
 def test_distance_mxu_gate_is_cost_based(monkeypatch):
-    # r4 continuation: the gate compares predicted MXU time against the
-    # route the engine would otherwise take, instead of a fixed cmax
-    # crossover — wide-bins bands route far past the old 16.
-    monkeypatch.setenv("KMER_TPU_DIST_MXU", "1")
+    # The gate compares predicted threshold time against the route the
+    # engine would otherwise take (ops/distance time models), instead of
+    # a fixed cmax crossover.
+    monkeypatch.setenv("KMER_DIST_INT8", "1")
     eng = KmerEngine(KmerConfig(k=8))
     counts = np.ones((4, 1 << 16), dtype=np.int32)
     counts[0, 0] = 32
-    # 64K bins, no Pallas on CPU -> alternative is jnp: cmax 32 wins.
-    assert eng._mxu_dist_cmax(counts) == 32
-    # Same counts against the (cheaper) Pallas tri alternative: cmax 64
-    # sits past the ~40 breakeven and must refuse; 16 still routes.
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+    # 64K bins, no Pallas kernel on the CPU -> the alternative is XLA's
+    # (min,+): cmax 32 wins.
+    assert eng._int8_dist_cmax(counts) == 32
+    # Against the (cheaper) Pallas kernel the 64K-bin breakeven sits past
+    # the unroll cap, so 64 still routes...
+    monkeypatch.setenv("KMER_PALLAS_INTERPRET", "1")
     counts[0, 0] = 64
-    assert eng._mxu_dist_cmax(counts) is None
-    counts[0, 0] = 16
-    assert eng._mxu_dist_cmax(counts) == 16
+    assert eng._int8_dist_cmax(counts) == 64
+    # ...but at 64 bins the per-threshold floor dominates: the kernel
+    # wins from cmax 4 on, while cmax 2 keeps the thresholds.
+    eng3 = KmerEngine(KmerConfig(k=3))
+    small = np.ones((4, 64), dtype=np.int32)
+    small[0, 0] = 4
+    assert eng3._int8_dist_cmax(small) is None
+    small[0, 0] = 2
+    assert eng3._int8_dist_cmax(small) == 2
     # cmax buckets to a power of two (5 -> 8): extra thresholds are
     # exact zeros, and a cmax stream compiles a bounded program set.
     counts[0, 0] = 5
-    assert eng._mxu_dist_cmax(counts) == 8
+    assert eng._int8_dist_cmax(counts) == 8
     # The env cap is an explicit override: trusted, no cost comparison.
-    counts[0, 0] = 64
-    monkeypatch.setenv("KMER_TPU_MXU_CMAX", "64")
-    assert eng._mxu_dist_cmax(counts) == 64
+    small[0, 0] = 64
+    monkeypatch.setenv("KMER_INT8_CMAX", "64")
+    assert eng3._int8_dist_cmax(small) == 64
 
 
 def test_distance_mxu_gate_respects_exactness_bound(monkeypatch):
     # Row window totals at/above 2^31 would overflow the int32 threshold
     # accumulation — the gate must refuse regardless of cmax.
-    monkeypatch.setenv("KMER_TPU_DIST_MXU", "1")
+    monkeypatch.setenv("KMER_DIST_INT8", "1")
     eng = KmerEngine(KmerConfig(k=4))
     small = np.full((2, 1 << 22), 4, dtype=np.int32)  # row sum 2^24: fine
-    assert eng._mxu_dist_cmax(small) == 4
-    monkeypatch.setenv("KMER_TPU_MXU_CMAX", "4096")  # isolate the sum gate
+    assert eng._int8_dist_cmax(small) == 4
+    monkeypatch.setenv("KMER_INT8_CMAX", "4096")  # isolate the sum gate
     big = np.full((2, 1 << 20), 2048, dtype=np.int32)  # row sum = 2^31
-    assert eng._mxu_dist_cmax(big) is None
+    assert eng._int8_dist_cmax(big) is None

@@ -1,29 +1,32 @@
-"""Engine end-to-end with Pallas kernels forced into interpreter mode.
+"""Engine end-to-end with the Pallas (min,+) kernel forced into
+interpreter mode.
 
-Exercises the exact code paths the TPU uses (kernel selection, halo masking,
-distance finish) without TPU hardware.
+Exercises the code paths the GPU takes (kernel selection, halo masking,
+distance finish, route reporting) without a card.
 """
 
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-from dna_kmeres_parallel_tpu.ops import runtime
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.models.engine import KmerEngine
+from dna_kmeres_parallel.ops import runtime
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 @pytest.fixture(autouse=True)
 def force_pallas_interpret(monkeypatch):
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("KMER_PALLAS_INTERPRET", "1")
     yield
 
 
 def test_pallas_mode_env(monkeypatch):
-    assert runtime.pallas_mode() == "interpret"
-    monkeypatch.delenv("KMER_TPU_PALLAS_INTERPRET")
-    # On the CPU test backend with no forcing, the jnp path is selected.
-    assert runtime.pallas_mode() in (None, "compiled")
+    be = runtime.backend()
+    assert be.kernel == "interpret"
+    assert be.platform == "cpu" and not be.accelerator
+    monkeypatch.delenv("KMER_PALLAS_INTERPRET")
+    # On the CPU test backend with no forcing, XLA's (min,+) is selected.
+    assert runtime.backend().kernel is None
 
 
 def test_count_via_pallas_matches_oracle(make_dna):
@@ -47,6 +50,7 @@ def test_distance_via_pallas_bitexact(make_dna):
     seqs = [make_dna(90 + 11 * i, invalid_frac=0.02) for i in range(9)]
     result = KmerEngine(KmerConfig(k=3)).distance_sequences(seqs)
     want = oracle.distance_matrix_packed(seqs, 3)
+    assert result.route == "pallas-min-plus"
     assert np.array_equal(result.packed, want)
 
 
@@ -61,13 +65,9 @@ def test_canonical_count_via_pallas(make_dna):
 
 
 @pytest.mark.parametrize("k,canonical", [(4, False), (6, True), (8, False)])
-def test_count_stream_planes_route_exact(make_dna, monkeypatch, k, canonical):
-    """r5 dense planes route (packed-plane bp2 kernel on the k=4..8
-    band): count_sequences through the interpret-mode Pallas path with
-    pack_input must equal the oracle bin-for-bin."""
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+def test_count_stream_planes_route_exact(make_dna, k, canonical):
+    """The dense band over the 2-bit packed wire format (pack_input):
+    count_sequences must equal the oracle bin-for-bin, packed or not."""
     seqs = [make_dna(300 + 17 * i, invalid_frac=0.03) for i in range(5)]
     cfg = KmerConfig(k=k, canonical=canonical, pack_input=True,
                      batch_bases=512)
@@ -77,6 +77,5 @@ def test_count_stream_planes_route_exact(make_dna, monkeypatch, k, canonical):
         np.zeros(4**k, np.int64),
     )
     assert np.array_equal(res.hist.astype(np.int64), want)
-    monkeypatch.setenv("KMER_TPU_DENSE_PLANES", "0")
-    res2 = KmerEngine(cfg).count_sequences(seqs)
+    res2 = KmerEngine(cfg.replace(pack_input=False)).count_sequences(seqs)
     assert np.array_equal(res2.hist.astype(np.int64), want)

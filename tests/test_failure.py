@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
-from dna_kmeres_parallel_tpu.utils import fasta
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.models.pipeline import StreamingCounter
+from dna_kmeres_parallel.utils import fasta
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 class FakeInternalError(Exception):
@@ -23,7 +23,7 @@ def fasta_file(tmp_path, make_dna):
 
 def test_transient_failures_retried(fasta_file, monkeypatch):
     path, seqs = fasta_file
-    import dna_kmeres_parallel_tpu.models.pipeline as pipeline_mod
+    import dna_kmeres_parallel.models.pipeline as pipeline_mod
 
     real = pipeline_mod._count_batch_packed
     fails = {"n": 2}  # within max_retries=2 for the first batch
@@ -46,7 +46,7 @@ def test_transient_failures_retried(fasta_file, monkeypatch):
 
 def test_fatal_failures_surface(fasta_file, monkeypatch):
     path, _ = fasta_file
-    import dna_kmeres_parallel_tpu.models.pipeline as pipeline_mod
+    import dna_kmeres_parallel.models.pipeline as pipeline_mod
 
     def broken(*a, **kw):
         raise ValueError("deterministic bug — must not be retried")
@@ -60,7 +60,7 @@ def test_fatal_failures_surface(fasta_file, monkeypatch):
 
 def test_retries_exhausted(fasta_file, monkeypatch):
     path, _ = fasta_file
-    import dna_kmeres_parallel_tpu.models.pipeline as pipeline_mod
+    import dna_kmeres_parallel.models.pipeline as pipeline_mod
 
     def always_transient(*a, **kw):
         raise FakeInternalError("Internal: persistent failure")

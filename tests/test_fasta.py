@@ -4,7 +4,7 @@ import io
 
 import pytest
 
-from dna_kmeres_parallel_tpu.utils import fasta
+from dna_kmeres_parallel.utils import fasta
 
 BLANK_SEP = b"""\
 >seq1 first

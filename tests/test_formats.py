@@ -5,10 +5,10 @@ import gzip
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu import native
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.utils import codec, fasta
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel import native
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.utils import codec, fasta
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 def _write_fastq(path, records, qual_char="I", wrap=None):
@@ -86,7 +86,7 @@ def test_gzip_byte_range_rejected(tmp_path, seqs):
 
 def test_engine_counts_fastq_and_gz(tmp_path, seqs, make_dna):
     # End to end: count a FASTQ and a gzipped FASTA through the engine.
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
+    from dna_kmeres_parallel.models.engine import KmerEngine
 
     fq = tmp_path / "e.fastq"
     _write_fastq(fq, seqs)

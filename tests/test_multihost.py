@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.parallel import multihost
-from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-from dna_kmeres_parallel_tpu.utils import fasta
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.parallel import multihost
+from dna_kmeres_parallel.parallel.mesh import make_mesh
+from dna_kmeres_parallel.utils import fasta
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 @pytest.fixture
@@ -99,8 +99,8 @@ def test_count_file_multihost_two_processes(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     records = [(f">r{i}", make_dna(120 + 31 * i)) for i in range(7)]
     path = tmp_path / "mp.fasta"
@@ -160,9 +160,9 @@ def test_bucketed_all_to_all_two_processes(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.utils import codec
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.utils import codec
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     records = [(f">r{i}", make_dna(150 + 41 * i)) for i in range(4)]
     path = tmp_path / "mpb.fasta"
@@ -216,10 +216,10 @@ def test_bucketed_raw_exchange_two_processes(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.models.sparse_engine import merge_sparse_tables
-    from dna_kmeres_parallel_tpu.utils import codec
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.models.sparse_engine import merge_sparse_tables
+    from dna_kmeres_parallel.utils import codec
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     records = [(f">r{i}", make_dna(150 + 41 * i)) for i in range(4)]
     path = tmp_path / "mpr.fasta"
@@ -270,9 +270,9 @@ def test_bucketed_raw_exchange_two_processes(tmp_path, make_dna):
 def test_make_global_stream_sub_mesh(make_dna):
     """A mesh smaller than the local device count must still shard
     (review regression: pad divisor was the local device count)."""
-    from dna_kmeres_parallel_tpu.parallel import multihost
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.parallel import multihost
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     mesh = make_mesh(3)
     flat = codec.encode_bases(make_dna(10))
@@ -350,7 +350,7 @@ def test_multihost_resumable_two_processes_kill_and_resume(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     records = [(f">r{i}", make_dna(400 + 61 * i)) for i in range(8)]
     path = tmp_path / "mres.fasta"
@@ -408,8 +408,8 @@ def test_bucketed_resumable_single_process(big_fasta, tmp_path):
     """Checkpointed bucket-sharded sparse count (config 5 + resume): stop
     after 2 steps, resume, and the final table must equal both the oracle
     and a no-checkpoint run (integer merges are bit-exact at any split)."""
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.utils import codec
 
     path, seqs = big_fasta
     k = 17
@@ -454,12 +454,12 @@ def test_bucketed_resumable_two_processes_kill_and_resume(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.models.sparse_engine import (
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.models.sparse_engine import (
         merge_sparse_tables,
     )
-    from dna_kmeres_parallel_tpu.utils import codec
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.utils import codec
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     records = [(f">r{i}", make_dna(400 + 61 * i)) for i in range(8)]
     path = tmp_path / "bres.fasta"
@@ -532,9 +532,9 @@ def test_bucketed_resumable_planes_route(big_fasta, tmp_path, monkeypatch):
     """The r4 v2 plane-staged route through the multihost bucketed path
     (interpret-mode Pallas; single process on the virtual mesh): exact vs
     the XLA route's table."""
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.utils import codec
 
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("KMER_PALLAS_INTERPRET", "1")
     path, seqs = big_fasta
     k = 17
     cfg = KmerConfig(k=k)
@@ -542,7 +542,7 @@ def test_bucketed_resumable_planes_route(big_fasta, tmp_path, monkeypatch):
     codes, counts, *_ = multihost.count_file_bucketed_multihost_resumable(
         path, cfg, mesh, batch_bases=2048
     )
-    monkeypatch.delenv("KMER_TPU_PALLAS_INTERPRET")
+    monkeypatch.delenv("KMER_PALLAS_INTERPRET")
     c2, n2, *_ = multihost.count_file_bucketed_multihost_resumable(
         path, KmerConfig(k=k, use_pallas=False), mesh, batch_bases=2048
     )
@@ -553,7 +553,7 @@ def test_distance_multihost_single_process(big_fasta, tmp_path):
     # Single-process path of the r5 multi-host distance engine: rank 0
     # owns every row; the stitched CSV must be byte-identical to the
     # oracle CSV (dense regime, k=5).
-    from dna_kmeres_parallel_tpu.utils import io as io_mod
+    from dna_kmeres_parallel.utils import io as io_mod
 
     path, seqs = big_fasta
     out = tmp_path / "d.csv"
@@ -578,9 +578,9 @@ def test_distance_multihost_two_processes_kill_and_resume(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models import oracle as oracle_mod
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
-    from dna_kmeres_parallel_tpu.utils import io as io_mod
+    from dna_kmeres_parallel.models import oracle as oracle_mod
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.utils import io as io_mod
 
     records = [(f">r{i}", make_dna(90 + 13 * i)) for i in range(10)]
     path = tmp_path / "mdist.fasta"
@@ -655,9 +655,9 @@ def test_distance_multihost_two_processes_dense_regime(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models import oracle as oracle_mod
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
-    from dna_kmeres_parallel_tpu.utils import io as io_mod
+    from dna_kmeres_parallel.models import oracle as oracle_mod
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.utils import io as io_mod
 
     records = [(f">r{i}", make_dna(80 + 11 * i)) for i in range(9)]
     path = tmp_path / "mdistd.fasta"

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu import native
-from dna_kmeres_parallel_tpu.utils import codec, fasta
+from dna_kmeres_parallel import native
+from dna_kmeres_parallel.utils import codec, fasta
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native lib unavailable: {native.build_error()}"
@@ -104,9 +104,9 @@ def test_large_multiline_stream(tmp_path, make_dna):
 
 
 def test_count_dense_native_matches_oracle(make_dna):
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.models.engine import KmerEngine
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     seqs = [make_dna(400, invalid_frac=0.03) for _ in range(5)]
     engine = KmerEngine(KmerConfig(k=5))
@@ -121,7 +121,7 @@ def test_count_dense_native_matches_oracle(make_dna):
 
 
 def test_count_dense_native_n_own(make_dna):
-    from dna_kmeres_parallel_tpu.models import oracle
+    from dna_kmeres_parallel.models import oracle
 
     s = make_dna(500)
     stream = codec.encode_bases(s)
@@ -142,8 +142,8 @@ def test_compact_rle_native_matches_python():
 
 
 def _python_compact_starts(words, starts):
-    from dna_kmeres_parallel_tpu.models import sparse_engine
-    from dna_kmeres_parallel_tpu.ops import sparse as sparse_ops
+    from dna_kmeres_parallel.models import sparse_engine
+    from dna_kmeres_parallel.ops import sparse as sparse_ops
 
     major = words[0]
     sent = major.dtype.type(np.iinfo(major.dtype).max)
@@ -315,7 +315,7 @@ def test_compact_rows_native_empty_and_full():
 def test_parse_range_native_matches_python(tmp_path, make_dna):
     # Record-aligned byte ranges: native range parse == python range parse,
     # and the concatenation of all ranges covers every record exactly once.
-    from dna_kmeres_parallel_tpu.parallel import multihost
+    from dna_kmeres_parallel.parallel import multihost
 
     records = [(f">r{i} extra", make_dna(50 + 37 * i, invalid_frac=0.05)) for i in range(13)]
     path = _write(tmp_path, records, width=23)
@@ -402,8 +402,8 @@ def test_compact_rows_native_two_stage_sentinels():
 def test_count_sparse_host_native_matches_oracle(make_dna, k, canonical):
     """The C++ host engine (rolling encoder fused into the radix core)
     must be exact vs the NumPy oracle across key layouts and canonical."""
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.utils import codec
 
     if not native.available():
         pytest.skip("native lib unavailable")
@@ -422,7 +422,7 @@ def test_count_sparse_host_native_matches_oracle(make_dna, k, canonical):
 
 
 def test_count_sparse_host_native_edges():
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.utils import codec
 
     if not native.available():
         pytest.skip("native lib unavailable")
@@ -456,7 +456,7 @@ def test_format_f6_byte_parity():
     """Native %f formatter must produce byte-identical CSV bytes to the
     Python '%f' loop it replaces (reference format, main.cu:199-202) —
     including edge values and values outside [0, 1]."""
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     rng = np.random.default_rng(3)
     vals = np.concatenate(

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.ops import distance as dist_ops
-from dna_kmeres_parallel_tpu.ops import encode as encode_ops
-from dna_kmeres_parallel_tpu.ops import histogram as hist_ops
-from dna_kmeres_parallel_tpu.utils import codec
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.ops import distance as dist_ops
+from dna_kmeres_parallel.ops import encode as encode_ops
+from dna_kmeres_parallel.ops import histogram as hist_ops
+from dna_kmeres_parallel.utils import codec
 
 
 def _codes(s, k):
@@ -57,14 +57,14 @@ def test_canonicalize_matches_host():
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("impl", ["onehot", "scatter", "auto"])
+@pytest.mark.parametrize("impl", ["sorted", "scatter", "auto"])
 def test_histogram_matches_oracle(make_dna, impl):
     s = make_dna(3000, invalid_frac=0.02)
     k = 4
     bins = 4**k
     codes, valid = _codes(s, k)
     fn = {
-        "onehot": hist_ops.histogram_onehot,
+        "sorted": hist_ops.histogram_sorted,
         "scatter": hist_ops.histogram_scatter,
         "auto": hist_ops.histogram,
     }[impl]
@@ -81,22 +81,18 @@ def test_histogram_large_bins_scatter(make_dna):
     assert np.array_equal(got, oracle.count_vector(s, k))
 
 
-@pytest.mark.parametrize("impl", ["onehot", "scatter"])
-def test_counts_matrix_matches_oracle(make_dna, impl):
+@pytest.mark.parametrize("pad", [0, 5])
+def test_counts_matrix_matches_oracle(make_dna, pad):
+    # Row grids padded past the longest sequence with INVALID bases.
     k = 3
     bins = 64
     seqs = [make_dna(80 + 7 * i, invalid_frac=0.03) for i in range(9)]
     L = max(len(s) for s in seqs)
-    grid = np.full((len(seqs), L + 5), codec.INVALID_BASE, dtype=np.uint8)
+    grid = np.full((len(seqs), L + pad), codec.INVALID_BASE, dtype=np.uint8)
     for i, s in enumerate(seqs):
         grid[i, : len(s)] = codec.encode_bases(s)
     codes, valid = encode_ops.rolling_codes(jnp.asarray(grid), k)
-    fn = (
-        hist_ops.counts_matrix_onehot
-        if impl == "onehot"
-        else hist_ops.counts_matrix_scatter
-    )
-    got = np.asarray(fn(codes, valid, bins), dtype=np.int64)
+    got = np.asarray(hist_ops.counts_matrix(codes, valid, bins), dtype=np.int64)
     want = oracle.counts_matrix(seqs, k)
     assert np.array_equal(got, want)
 
@@ -109,7 +105,7 @@ def test_distance_square_matches_oracle(make_dna):
     sq = np.asarray(
         dist_ops.distance_matrix_square(counts, lengths, k, row_block=8)
     )
-    from dna_kmeres_parallel_tpu.utils.triangular import packed_to_square
+    from dna_kmeres_parallel.utils.triangular import packed_to_square
 
     want = packed_to_square(oracle.distance_matrix_packed(seqs, k), len(seqs))
     rows, cols = np.triu_indices(len(seqs), k=1)
@@ -145,7 +141,7 @@ def test_histogram_sorted_matches_oracle(make_dna):
 
 @pytest.mark.parametrize("cmax", [1, 3, 17, 64])
 def test_min_sum_matrix_mxu_exact(cmax):
-    # The MXU threshold identity sum_p min(a,b) = sum_t [a>=t][b>=t]
+    # The int8 threshold identity sum_p min(a,b) = sum_t [a>=t][b>=t]
     # must be bit-exact against the (min,+) reduction for any counts
     # bounded by cmax, including zero rows and asymmetric panels.
     rng = np.random.default_rng(3)
@@ -158,12 +154,12 @@ def test_min_sum_matrix_mxu_exact(cmax):
         )
     )
     got = np.asarray(
-        dist_ops.min_sum_matrix_mxu(
+        dist_ops.min_sum_matrix_int8(
             jnp.asarray(counts), cmax, jnp.asarray(other)
         )
     )
     assert np.array_equal(got, want)
-    sym = np.asarray(dist_ops.min_sum_matrix_mxu(jnp.asarray(counts), cmax))
+    sym = np.asarray(dist_ops.min_sum_matrix_int8(jnp.asarray(counts), cmax))
     assert np.array_equal(
         sym, np.asarray(dist_ops.min_sum_matrix(jnp.asarray(counts)))
     )

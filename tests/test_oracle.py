@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.utils import codec
-from dna_kmeres_parallel_tpu.utils.triangular import packed_index, packed_size
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.utils import codec
+from dna_kmeres_parallel.utils.triangular import packed_index, packed_size
 
 
 def test_hand_counted_k3():
@@ -121,3 +121,14 @@ def test_count_table_keys(make_dna):
     assert sum(table.values()) == len(s) - 4 + 1
     for kmer in table:
         assert len(kmer) == 4 and all(c in "ACGT" for c in kmer)
+
+
+@pytest.mark.parametrize("n_rows", [0, 1, 3, 9])
+def test_distance_rows_packed_is_a_prefix(make_dna, n_rows):
+    # The row panel is the first rows of the packed matrix, any k.
+    seqs = [make_dna(60 + 7 * i, invalid_frac=0.02) for i in range(8)]
+    full = oracle.distance_matrix_packed(seqs, 3)
+    panel = oracle.distance_rows_packed(seqs, 3, n_rows)
+    assert np.array_equal(panel, full[: panel.shape[0]])
+    rows = min(n_rows, len(seqs) - 1)
+    assert panel.shape[0] == sum(len(seqs) - 1 - i for i in range(rows))

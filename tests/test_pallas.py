@@ -1,103 +1,19 @@
-"""Pallas kernel tests in interpreter mode (exact-equality vs oracle).
+"""The Pallas-Triton (min,+) kernel in interpret mode (exact equality vs
+XLA's plain (min,+) and the oracle distances).
 
-Interpreter mode also catches OOB indexing that compiled TPU mode masks
-(SURVEY.md §5 race-detection plan). The same kernels run compiled on real
-TPU via the benchmark/CLI paths.
+Interpret mode runs the same kernel body on the CPU, including its tile
+padding, the triangle grid and the bins loop; the compiled kernel runs
+on the GPU through the engine and chip_smoke.py.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.ops import distance_pallas, histogram_pallas
-from dna_kmeres_parallel_tpu.ops import distance as dist_ops
-from dna_kmeres_parallel_tpu.ops import encode as encode_ops
-from dna_kmeres_parallel_tpu.utils import codec
-
-
-@pytest.mark.parametrize("k,bins", [(3, 64), (4, 256), (5, 1024)])
-def test_counts_matrix_pallas(make_dna, k, bins):
-    seqs = [make_dna(150 + 31 * i, invalid_frac=0.03) for i in range(11)]
-    L = max(len(s) for s in seqs)
-    grid = np.full((len(seqs), L), codec.INVALID_BASE, dtype=np.uint8)
-    for i, s in enumerate(seqs):
-        grid[i, : len(s)] = codec.encode_bases(s)
-    got = np.asarray(
-        histogram_pallas.counts_matrix_pallas(
-            jnp.asarray(grid), k, bins, interpret=True
-        ),
-        dtype=np.int64,
-    )
-    want = oracle.counts_matrix(seqs, k)
-    assert np.array_equal(got, want)
-
-
-def test_counts_matrix_pallas_canonical(make_dna):
-    k = 4
-    seqs = [make_dna(200) for _ in range(5)]
-    L = max(len(s) for s in seqs)
-    grid = np.full((len(seqs), L), codec.INVALID_BASE, dtype=np.uint8)
-    for i, s in enumerate(seqs):
-        grid[i, : len(s)] = codec.encode_bases(s)
-    got = np.asarray(
-        histogram_pallas.counts_matrix_pallas(
-            jnp.asarray(grid), k, 256, canonical=True, interpret=True
-        ),
-        dtype=np.int64,
-    )
-    want = oracle.counts_matrix(seqs, k, canonical=True)
-    assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize("k", [3, 6, 8, 11])
-def test_histogram_pallas_2level(make_dna, k):
-    # Covers H=1 (64 bins), H<groups, and the multi-group k=11 (4M bins).
-    s = make_dna(20000, invalid_frac=0.02)
-    bases = jnp.asarray(codec.encode_bases(s))
-    got = np.asarray(
-        histogram_pallas.histogram_pallas(
-            bases, jnp.int32(len(s) - k + 1), k, codec.num_bins(k), interpret=True
-        ),
-        dtype=np.int64,
-    )
-    want = oracle.count_vector(s, k)
-    assert np.array_equal(got, want)
-
-
-def test_histogram_pallas_ownership_mask(make_dna):
-    # Windows starting at positions >= n_own must not count (halo semantics).
-    k = 5
-    s = make_dna(1000)
-    bases = jnp.asarray(codec.encode_bases(s))
-    n_own = 400
-    got = np.asarray(
-        histogram_pallas.histogram_pallas(
-            bases, jnp.int32(n_own), k, codec.num_bins(k), interpret=True
-        ),
-        dtype=np.int64,
-    )
-    want = oracle.count_vector(s[: n_own + k - 1], k)
-    assert np.array_equal(got, want)
-
-
-def test_histogram_pallas_canonical(make_dna):
-    k = 6
-    s = make_dna(5000)
-    bases = jnp.asarray(codec.encode_bases(s))
-    got = np.asarray(
-        histogram_pallas.histogram_pallas(
-            bases,
-            jnp.int32(len(s) - k + 1),
-            k,
-            codec.num_bins(k),
-            canonical=True,
-            interpret=True,
-        ),
-        dtype=np.int64,
-    )
-    want = oracle.count_vector(s, k, canonical=True)
-    assert np.array_equal(got, want)
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.ops import distance as dist_ops
+from dna_kmeres_parallel.ops import distance_pallas
+from dna_kmeres_parallel.utils import codec
 
 
 def test_min_sum_pallas_matches_jnp(make_dna):
@@ -112,7 +28,7 @@ def test_min_sum_pallas_matches_jnp(make_dna):
 
 
 def test_min_sum_pallas_distances_exact(make_dna):
-    # Full path: pallas min-sums + host finish == oracle distances, bitwise.
+    # Full path: kernel min-sums + host finish == oracle distances, bitwise.
     k = 3
     seqs = [make_dna(100 + 5 * i, invalid_frac=0.02) for i in range(9)]
     counts = oracle.counts_matrix(seqs, k).astype(np.int32)
@@ -126,63 +42,22 @@ def test_min_sum_pallas_distances_exact(make_dna):
     assert np.array_equal(sq[rows, cols], want)
 
 
-@pytest.mark.parametrize("R,m", [(8, 128), (16, 512), (8, 2048)])
-def test_row_sort_pallas_matches_np(R, m):
-    from dna_kmeres_parallel_tpu.ops.sort_pallas import row_sort_pallas_u32
-
-    rng = np.random.default_rng(11)
-    x = rng.integers(0, 1 << 32, (R, m), dtype=np.uint64).astype(np.uint32)
-    x[0, :4] = [0, 0xFFFFFFFF, 0x7FFFFFFF, 0x80000000]  # bias-order extremes
-    got = np.asarray(row_sort_pallas_u32(jnp.asarray(x), interpret=True))
-    assert np.array_equal(got, np.sort(x, axis=1))
-
-
-def test_sort_words_rows_pallas_sort_env(make_dna, monkeypatch):
-    # KMER_TPU_PALLAS_SORT=1 routes the single-word row sort through the
-    # bitonic kernel; the table must be unchanged.
-    from dna_kmeres_parallel_tpu.models.sparse_engine import compact_table
-    from dna_kmeres_parallel_tpu.ops import sparse as sparse_ops
-    from dna_kmeres_parallel_tpu.utils import codec
-
-    s = make_dna(600, invalid_frac=0.02)
-    bases = jnp.asarray(codec.encode_bases(s))
-    n_own = jnp.int32(len(s) - 13 + 1)
-    base = compact_table(
-        sparse_ops.sort_words_rows(bases, n_own, 13, False, pallas="interpret", row_len=128)
-    )
-    monkeypatch.setenv("KMER_TPU_PALLAS_SORT", "1")
-    # The env is resolved at CALL time (outside jit) and keyed as a static
-    # arg — no cache clearing needed to flip it mid-process.
-    alt = compact_table(
-        sparse_ops.sort_words_rows(
-            bases, n_own, 13, False, pallas="interpret", row_len=128
-        )
-    )
-    assert np.array_equal(base[0], alt[0])
-    assert np.array_equal(base[1], alt[1])
-
-
 def test_min_sum_tri_matches_full_on_triangle():
-    """Triangle-only grid == full kernel on all i <= j entries (the only
-    ones consumers may read; strictly-lower tiles are never written)."""
-    import numpy as np
-
-    from dna_kmeres_parallel_tpu.ops import distance_pallas as dp
-
+    """Triangle grid (counts_other=None) == the rectangular grid over the
+    same matrix: the mirror restores every strictly-lower tile."""
     rng = np.random.default_rng(4)
-    S, B = 300, 64  # non-multiple of the 256 tile on purpose
+    S, B = 300, 64  # non-multiple of the tiles on purpose
     counts = jnp.asarray(rng.integers(0, 500, (S, B), dtype=np.int32))
-    full = np.asarray(dp.min_sum_matrix_pallas(counts, interpret=True))
-    tri = np.asarray(dp.min_sum_matrix_pallas_tri(counts, interpret=True))
-    # the tri variant mirrors the upper triangle, so the FULL matrix must
-    # match (no partial-validity contract)
+    full = np.asarray(
+        distance_pallas.min_sum_matrix_pallas(counts, counts, interpret=True)
+    )
+    tri = np.asarray(distance_pallas.min_sum_matrix_pallas(counts, interpret=True))
     assert np.array_equal(tri, full)
 
 
 @pytest.mark.parametrize("B", [640, 1024, 4096])
 def test_min_sum_pallas_bins_tiled(B):
-    """Bins past the 512 unroll budget run via the bins-tiled grid axis
-    (out tile resident in VMEM, one 512-bin slab per step) — exact."""
+    """Wide bins run as the in-program loop over BK-bin chunks — exact."""
     rng = np.random.default_rng(7)
     S = 40
     counts = jnp.asarray(rng.integers(0, 300, (S, B), dtype=np.int32))
@@ -198,24 +73,23 @@ def test_min_sum_tri_bins_tiled():
     S, B = 300, 1024
     counts = jnp.asarray(rng.integers(0, 500, (S, B), dtype=np.int32))
     full = np.asarray(
-        distance_pallas.min_sum_matrix_pallas(counts, interpret=True)
+        distance_pallas.min_sum_matrix_pallas(counts, counts, interpret=True)
     )
     tri = np.asarray(
-        distance_pallas.min_sum_matrix_pallas_tri(counts, interpret=True)
+        distance_pallas.min_sum_matrix_pallas(counts, interpret=True)
     )
     assert np.array_equal(tri, full)
 
 
 def test_min_sum_pallas_k8_distances_exact(make_dna):
-    # k=8 (64K bins) engages the tiled kernel through the engine gate; the
-    # distances must stay bit-exact vs the oracle. Keep S tiny: interpret
-    # mode walks 128 slabs per tile pair.
-    k, B = 6, 4096
+    # A wide dense band through the kernel; the distances must stay
+    # bit-exact vs the oracle. Keep S tiny: interpret mode walks every bin.
+    k = 6
     seqs = [make_dna(200 + 7 * i, invalid_frac=0.02) for i in range(6)]
     counts = oracle.counts_matrix(seqs, k).astype(np.int32)
     lengths = np.array([len(s) for s in seqs], dtype=np.int64)
     sums = np.asarray(
-        distance_pallas.min_sum_matrix_pallas_tri(
+        distance_pallas.min_sum_matrix_pallas(
             jnp.asarray(counts), interpret=True
         )
     )
@@ -225,173 +99,84 @@ def test_min_sum_pallas_k8_distances_exact(make_dna):
     assert np.array_equal(sq[rows, cols], want)
 
 
-@pytest.mark.parametrize("k,canonical", [(3, False), (4, False), (4, True), (7, False)])
-def test_histogram_bitplane_matches_oracle(make_dna, k, canonical):
-    from dna_kmeres_parallel_tpu.ops.histogram_pallas import (
-        histogram_bitplane_pallas,
-    )
-    from dna_kmeres_parallel_tpu.utils import codec
-
-    s = make_dna(1500, invalid_frac=0.03)
-    bases = jnp.asarray(codec.encode_bases(s))
+@pytest.mark.parametrize("B", [1, 5, 13, 70])
+def test_min_sum_pallas_bins_not_multiple_of_bk(B):
+    """Bin counts that are not a multiple of BK pad with zero bins, which
+    add min(., 0) = 0 — exact."""
+    assert B % distance_pallas.BK
+    rng = np.random.default_rng(B)
+    counts = jnp.asarray(rng.integers(0, 50, (19, B), dtype=np.int32))
+    other = jnp.asarray(rng.integers(0, 50, (23, B), dtype=np.int32))
     got = np.asarray(
-        histogram_bitplane_pallas(
-            bases,
-            jnp.int32(len(s) - k + 1),
-            k,
-            codec.num_bins(k),
-            canonical=canonical,
-            interpret=True,
-        ),
-        dtype=np.int64,
+        distance_pallas.min_sum_matrix_pallas(counts, other, interpret=True)
     )
-    want = oracle.count_vector(s, k, canonical=canonical)
+    want = np.asarray(
+        dist_ops.min_sum_matrix(counts, row_block=8, counts_other=other)
+    )
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("mode", ["planes", "cmp"])
 @pytest.mark.parametrize(
-    "k,canonical",
-    [(3, False), (6, False), (6, True), (7, False), (8, False), (8, True)],
+    "S,bm,bn", [(300, 64, 128), (300, 128, 32), (257, 32, 64), (5, 64, 128)]
 )
-def test_histogram_bp2_matches_oracle(make_dna, k, canonical, mode):
-    from dna_kmeres_parallel_tpu.ops.histogram_pallas import (
-        histogram_bp2_pallas,
-    )
-    from dna_kmeres_parallel_tpu.utils import codec
-
-    s = make_dna(1500, invalid_frac=0.03)
-    bases = jnp.asarray(codec.encode_bases(s))
+def test_min_sum_pallas_triangle_grid_uneven_tiles(S, bm, bn):
+    """The triangle grid picks its tiles from program_id: with BM != BN a
+    tile is computed iff its last column reaches its first row. A wrong
+    rule would leave zeros that the mirror cannot repair."""
+    rng = np.random.default_rng(S + bm)
+    counts = jnp.asarray(rng.integers(0, 60, (S, 11), dtype=np.int32))
     got = np.asarray(
-        histogram_bp2_pallas(
-            bases,
-            jnp.int32(len(s) - k + 1),
-            k,
-            codec.num_bins(k),
-            canonical=canonical,
-            interpret=True,
-            mode=mode,
-        ),
-        dtype=np.int64,
+        distance_pallas.min_sum_matrix_pallas(
+            counts, interpret=True, bm=bm, bn=bn
+        )
     )
-    want = oracle.count_vector(s, k, canonical=canonical)
+    want = np.asarray(dist_ops.min_sum_matrix(counts, row_block=8))
     assert np.array_equal(got, want)
 
 
-def test_histogram_bp2_n_own_mask(make_dna):
-    from dna_kmeres_parallel_tpu.ops.histogram_pallas import (
-        histogram_bp2_pallas,
-    )
-
-    k = 6
-    s = make_dna(900)
-    bases = jnp.asarray(codec.encode_bases(s))
-    for n_own in (0, 1, 300):
-        got = np.asarray(
-            histogram_bp2_pallas(
-                bases, jnp.int32(n_own), k, 4096, interpret=True
-            )
-        )
-        assert got.sum() == n_own
-        want = oracle.count_vector(s[: n_own + k - 1] if n_own else "", k)
-        assert np.array_equal(got.astype(np.int64), want)
-
-
-def test_histogram_bitplane_n_own_mask(make_dna):
-    # Windows starting at positions >= n_own must not count (the streaming
-    # batch-overlap rule); the invalid-window/padding-bin corner (both
-    # validity planes -1 agree) is cropped by the [:bins] slice.
-    from dna_kmeres_parallel_tpu.ops.histogram_pallas import (
-        histogram_bitplane_pallas,
-    )
-    from dna_kmeres_parallel_tpu.utils import codec
-
-    k = 4
-    s = make_dna(800)
-    bases = jnp.asarray(codec.encode_bases(s))
-    n_own = 300
+@pytest.mark.parametrize("S,S2", [(1, 1), (63, 129), (130, 7)])
+def test_min_sum_pallas_panel_tile_padding(S, S2):
+    """Row panels against partner matrices whose sizes pad to neither tile
+    edge: padded rows and columns are sliced off exactly."""
+    rng = np.random.default_rng(S * 1000 + S2)
+    panel = jnp.asarray(rng.integers(0, 9, (S, 64), dtype=np.int32))
+    other = jnp.asarray(rng.integers(0, 9, (S2, 64), dtype=np.int32))
     got = np.asarray(
-        histogram_bitplane_pallas(
-            bases, jnp.int32(n_own), k, 256, interpret=True
-        )
+        distance_pallas.min_sum_matrix_pallas(panel, other, interpret=True)
     )
-    assert got.sum() == n_own
-    want = oracle.count_vector(s[: n_own + k - 1], k)
-    assert np.array_equal(got.astype(np.int64), want)
-
-
-@pytest.mark.parametrize("mode", ["cmp", "planes"])
-@pytest.mark.parametrize(
-    "k,canonical",
-    [(3, False), (4, False), (4, True), (7, False), (8, False), (8, True)],
-)
-def test_histogram_bp2_packed_matches_oracle(make_dna, k, canonical, mode):
-    """r5 packed-plane front end (VERDICT weak #4): the bp2 histogram fed
-    from host-staged u32 planes (v2 wire format, residue-permuted window
-    order) must equal the oracle bin-for-bin, invalid bases included."""
-    from dna_kmeres_parallel_tpu.ops.encode import INVALID
-    from dna_kmeres_parallel_tpu.ops.encode_pallas import (
-        host_planes_from_packfmt,
+    assert got.shape == (S, S2)
+    want = np.asarray(
+        dist_ops.min_sum_matrix(panel, row_block=1, counts_other=other)
     )
-    from dna_kmeres_parallel_tpu.ops.histogram_pallas import (
-        histogram_bp2_packed_pallas,
-    )
-    from dna_kmeres_parallel_tpu.utils import codec
-
-    s = make_dna(1500, invalid_frac=0.03)
-    bases = codec.encode_bases(s)
-    pad = (-bases.shape[0]) % 16
-    bases_p = np.concatenate(
-        [bases, np.full(pad, INVALID, dtype=np.uint8)]
-    )
-    data, mask, _ = codec.pack_bases(bases_p)
-    w_le, iv_be = host_planes_from_packfmt(data, mask)
-    got = np.asarray(
-        histogram_bp2_packed_pallas(
-            jnp.asarray(w_le),
-            jnp.asarray(iv_be),
-            jnp.int32(len(s) - k + 1),
-            k,
-            codec.num_bins(k),
-            canonical=canonical,
-            interpret=True,
-            mode=mode,
-        ),
-        dtype=np.int64,
-    )
-    want = oracle.count_vector(s, k, canonical=canonical)
     assert np.array_equal(got, want)
 
 
-def test_histogram_bp2_packed_n_own_mask(make_dna):
-    from dna_kmeres_parallel_tpu.ops.encode import INVALID
-    from dna_kmeres_parallel_tpu.ops.encode_pallas import (
-        host_planes_from_packfmt,
-    )
-    from dna_kmeres_parallel_tpu.ops.histogram_pallas import (
-        histogram_bp2_packed_pallas,
-    )
-
-    k = 6
-    s = make_dna(900)
-    bases = codec.encode_bases(s)
-    pad = (-bases.shape[0]) % 16
-    bases_p = np.concatenate(
-        [bases, np.full(pad, INVALID, dtype=np.uint8)]
-    )
-    data, mask, _ = codec.pack_bases(bases_p)
-    w_le, iv_be = host_planes_from_packfmt(data, mask)
-    for n_own in (0, 1, 300):
-        got = np.asarray(
-            histogram_bp2_packed_pallas(
-                jnp.asarray(w_le),
-                jnp.asarray(iv_be),
-                jnp.int32(n_own),
-                k,
-                4096,
-                interpret=True,
-            )
+def test_min_sum_pallas_widens_int8():
+    # The union route ships int8 counts; the kernel widens on device.
+    rng = np.random.default_rng(3)
+    counts = rng.integers(0, 100, (40, 96), dtype=np.int32)
+    got = np.asarray(
+        distance_pallas.min_sum_matrix_pallas(
+            jnp.asarray(counts.astype(np.int8)), interpret=True
         )
-        assert got.sum() == n_own
-        want = oracle.count_vector(s[: n_own + k - 1] if n_own else "", k)
-        assert np.array_equal(got.astype(np.int64), want)
+    )
+    want = np.asarray(dist_ops.min_sum_matrix(jnp.asarray(counts), row_block=8))
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_min_sum_pallas_compiled_matches_xla(gpu):
+    """The kernel as Triton compiles it for the card, at the k=3 width."""
+    rng = np.random.default_rng(5)
+    counts = jnp.asarray(rng.integers(0, 200, (1000, 64), dtype=np.int32))
+    got = np.asarray(distance_pallas.min_sum_matrix_pallas(counts))
+    want = np.asarray(dist_ops.min_sum_matrix(counts))
+    assert np.array_equal(got, want)
+
+
+def test_kernel_tiles_are_powers_of_two():
+    # Triton block shapes must be powers of two.
+    for t in (distance_pallas.BM, distance_pallas.BN, distance_pallas.BK):
+        assert t & (t - 1) == 0
+    assert codec.num_bins(3) % distance_pallas.BK == 0

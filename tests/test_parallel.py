@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.ops import distance as dist_ops
-from dna_kmeres_parallel_tpu.parallel import sharded_count as sc
-from dna_kmeres_parallel_tpu.parallel.mesh import DATA_AXIS, make_mesh
-from dna_kmeres_parallel_tpu.utils import codec
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.ops import distance as dist_ops
+from dna_kmeres_parallel.parallel import sharded_count as sc
+from dna_kmeres_parallel.parallel.mesh import DATA_AXIS, make_mesh
+from dna_kmeres_parallel.utils import codec
 
 
 def _flat_stream(seqs):
@@ -112,10 +112,10 @@ def test_stream_not_divisible_is_padded(make_dna, mesh8):
 @pytest.mark.parametrize("k,canonical", [(13, False), (21, False), (21, True), (31, False)])
 def test_count_sparse_sharded_matches_oracle(make_dna, k, canonical):
     # DP-sparse (config 4 shape): per-chip row-sorted shards, host merge.
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.parallel import sharded_sparse
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.parallel import sharded_sparse
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     seqs = [make_dna(130 + 31 * i, invalid_frac=0.02) for i in range(5)]
     parts = []
@@ -137,9 +137,9 @@ def test_count_sparse_sharded_matches_oracle(make_dna, k, canonical):
 def test_count_sparse_sharded_nosort_matches_sorted(make_dna, k):
     # The no-device-sort DP route (encode-only shards + host radix
     # compactor) is bit-identical to the row-sorted route.
-    from dna_kmeres_parallel_tpu.parallel import sharded_sparse
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.parallel import sharded_sparse
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     flat = codec.encode_bases(make_dna(900, invalid_frac=0.02))
     mesh = make_mesh(8)
@@ -155,10 +155,10 @@ def test_count_sparse_sharded_nosort_matches_sorted(make_dna, k):
 
 def test_streaming_mesh_nosort_matches_oracle(make_dna, tmp_path):
     # StreamingCounter on the virtual mesh with device_sort=False.
-    from dna_kmeres_parallel_tpu.models.oracle import count_table_any_k
-    from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
-    from dna_kmeres_parallel_tpu.utils import codec, fasta
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+    from dna_kmeres_parallel.models.oracle import count_table_any_k
+    from dna_kmeres_parallel.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel.utils import codec, fasta
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
     records = [(f">r{i}", make_dna(200 + 17 * i)) for i in range(3)]
     path = tmp_path / "m.fasta"
@@ -177,9 +177,9 @@ def test_streaming_mesh_nosort_matches_oracle(make_dna, tmp_path):
 
 def test_count_sparse_sharded_device_count_invariant(make_dna):
     # Bit-identical table at 1, 2, 8 devices (integer merges only).
-    from dna_kmeres_parallel_tpu.parallel import sharded_sparse
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
-    from dna_kmeres_parallel_tpu.utils import codec
+    from dna_kmeres_parallel.parallel import sharded_sparse
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.utils import codec
 
     flat = codec.encode_bases(make_dna(700, invalid_frac=0.01))
     results = [
@@ -194,8 +194,8 @@ def test_count_sparse_sharded_device_count_invariant(make_dna):
 def test_sharded_counters_empty_stream(make_dna):
     """An empty stream must return an empty table from every sharded
     counter, not crash the encoder's window math (review regression)."""
-    from dna_kmeres_parallel_tpu.parallel import bucketed, sharded_sparse
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.parallel import bucketed, sharded_sparse
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
 
     mesh = make_mesh(8)
     flat = np.zeros(0, np.uint8)

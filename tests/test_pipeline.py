@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
-from dna_kmeres_parallel_tpu.utils import checkpoint as ckpt_mod
-from dna_kmeres_parallel_tpu.utils import fasta
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.models.pipeline import StreamingCounter
+from dna_kmeres_parallel.utils import checkpoint as ckpt_mod
+from dna_kmeres_parallel.utils import fasta
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 @pytest.fixture
@@ -127,9 +127,9 @@ def test_stream_medium_dense_k9_routes_sparse(tmp_path, make_dna):
     # k=9..12 (bins > 2^16) in the streaming counter goes through the
     # sparse row-sorted path and materializes dense at the end — result
     # must equal the oracle dense histogram exactly.
-    from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.utils import fasta
 
     records = [(f">r{i}", make_dna(400, invalid_frac=0.02)) for i in range(4)]
     path = tmp_path / "m.fasta"
@@ -152,8 +152,8 @@ def test_stream_mesh_dp_matches_single(tmp_path, make_dna, k):
     # data-parallel over the mesh (dense: ppermute halos + psum; sparse:
     # per-chip row sort + host merge). Results must be bit-identical to
     # the single-device stream.
-    from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel.utils import fasta
 
     records = [(f">r{i}", make_dna(300 + 41 * i, invalid_frac=0.02)) for i in range(4)]
     path = tmp_path / "mesh.fasta"
@@ -172,8 +172,8 @@ def test_stream_mesh_dp_matches_single(tmp_path, make_dna, k):
 @pytest.mark.parametrize("compact", ["host", "device"])
 def test_sparse_compact_modes_match_oracle(fasta_file, compact):
     path, seqs = fasta_file
-    pytest.importorskip("dna_kmeres_parallel_tpu.native")
-    from dna_kmeres_parallel_tpu import native
+    pytest.importorskip("dna_kmeres_parallel.native")
+    from dna_kmeres_parallel import native
 
     if compact == "host" and not native.available():
         pytest.skip("native engine unavailable")
@@ -186,7 +186,7 @@ def test_sparse_compact_modes_match_oracle(fasta_file, compact):
 def test_sparse_compact_auto_races_and_decides(fasta_file):
     """'auto' must host-count exactly one probe batch, record a decision,
     and stay exact (the decided mode is host- and load-dependent)."""
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -208,8 +208,8 @@ def test_sparse_compact_auto_switches_to_host_when_device_slow(
     table must stay exact."""
     import time as _time
 
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.models import sparse_engine
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.models import sparse_engine
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -239,8 +239,8 @@ def test_sparse_compact_auto_flips_when_route_degrades_midstream(
     and the table must stay exact across the flip."""
     import time as _time
 
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.models import pipeline as pl
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.models import pipeline as pl
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -273,8 +273,8 @@ def test_sparse_compact_auto_exact_on_coverage_data(tmp_path, make_dna):
     pre-selection is gone — the hardware A/B showed device-rle losing at
     warm steady state even on the data it was designed for, so 'auto'
     always measures instead of guessing; VERDICT r4 weak #5)."""
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -300,8 +300,8 @@ def test_sparse_compact_auto_probes_super_subroute(fasta_file, monkeypatch):
     rate it) and the table stays exact whatever the EWMA decides."""
     import time as _time
 
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.models import pipeline as pl
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.models import pipeline as pl
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -337,9 +337,9 @@ def test_sparse_compact_auto_super_steady_state_with_words_reprobe(
     both the host probe and the words drain."""
     import time as _time
 
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.models import pipeline as pl
-    from dna_kmeres_parallel_tpu.models import sparse_engine
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.models import pipeline as pl
+    from dna_kmeres_parallel.models import sparse_engine
 
     if not native.available():
         pytest.skip("native engine unavailable")
@@ -378,7 +378,7 @@ def test_distance_checkpoint_refuses_wrong_input_and_short_csv(
 ):
     """Regression (r4 review): resuming against a different same-shape
     dataset or a damaged (short) CSV must refuse, not corrupt."""
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
+    from dna_kmeres_parallel.models.engine import KmerEngine
 
     seqs_a = [make_dna(60 + 3 * i) for i in range(12)]
     seqs_b = [make_dna(60 + 3 * i, invalid_frac=0.1) for i in range(12)]

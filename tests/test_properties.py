@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.utils import codec
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.utils import codec
 
 dna = st.text(alphabet="ACGT", min_size=0, max_size=200)
 dna_with_junk = st.text(alphabet="ACGTNacgt-", min_size=0, max_size=200)
@@ -77,7 +77,7 @@ _dna_n = st.text(alphabet="ACGTN", min_size=0, max_size=300)
 
 
 def _native_available():
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     return native.available()
 
@@ -89,7 +89,7 @@ def test_native_host_engine_property(s, k, canonical):
     """C++ host engine == oracle for arbitrary streams (invalid chars,
     short tails, any k/canonical) — the rolling fwd+rc encoder and the
     radix compactor under fuzz."""
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     stream = codec.encode_bases(s)
     codes, counts = native.count_sparse_host_native(stream, k, canonical)
@@ -109,8 +109,8 @@ def test_native_host_engine_property(s, k, canonical):
 def test_compact_unsorted_property(n, k, frac, seed):
     """Radix compactor == np.unique over arbitrary word streams with
     arbitrary sentinel density (incl. all-sentinel and empty)."""
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.ops import sparse as sparse_ops
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.ops import sparse as sparse_ops
 
     rng = np.random.default_rng(seed)
     kbits = 2 * k

@@ -1,10 +1,11 @@
 """Top-level library API (the package boundary users import)."""
 
 import numpy as np
+import pytest
 
-import dna_kmeres_parallel_tpu as dkp
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.utils import fasta
+import dna_kmeres_parallel as dkp
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.utils import fasta
 
 
 def test_count_sequences_dense(make_dna):
@@ -33,45 +34,46 @@ def test_count_file_and_distance_file(tmp_path, make_dna):
     assert np.array_equal(d.packed, want)
 
 
-def test_engine_pallas_compile_fallback(make_dna, monkeypatch):
-    # A Mosaic/remote-compile failure on the Pallas path must degrade to the
-    # jnp path mid-run, not fail the count.
-    import dna_kmeres_parallel_tpu.models.engine as engine_mod
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-    from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+def test_engine_kernel_compile_error_propagates(make_dna, monkeypatch):
+    # A kernel that fails to compile is an error, not a route change: the
+    # distance run raises instead of quietly taking XLA's (min,+).
+    import dna_kmeres_parallel.models.engine as engine_mod
+    from dna_kmeres_parallel.models.engine import KmerEngine
+    from dna_kmeres_parallel.utils.config import KmerConfig
 
-    real = engine_mod._count_batch_packed
-    calls = {"planes": 0, "packed": 0}
+    def broken(*a, **kw):
+        raise RuntimeError("INTERNAL: Triton compilation failed")
 
-    # r5 degradation chain: the dense k=4..8 band routes the packed-
-    # PLANES kernel first; a compile failure there must fall back to
-    # the packed program, and a pallas failure THERE to the jnp path.
-    def flaky_planes(w_le, iv_be, n_own, k, bins, canonical,
-                     pallas="compiled"):
-        calls["planes"] += 1
-        raise RuntimeError("INTERNAL: remote_compile: HTTP 500 (Mosaic)")
-
-    def flaky_packed(data, mask, n_own, k, bins, canonical, pallas=None):
-        calls["packed"] += 1
-        if pallas is not None:
-            raise RuntimeError("INTERNAL: remote_compile: HTTP 500 (Mosaic)")
-        return real(data, mask, n_own, k, bins, canonical, None)
-
-    monkeypatch.setattr(engine_mod, "_count_batch_planes", flaky_planes)
-    monkeypatch.setattr(engine_mod, "_count_batch_packed", flaky_packed)
-    monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")  # force pallas mode
-    seqs = [make_dna(300) for _ in range(2)]
-    result = KmerEngine(KmerConfig(k=4, batch_bases=256)).count_sequences(seqs)
-    want = sum(
-        (oracle.count_vector(s, 4) for s in seqs), np.zeros(256, np.int64)
+    monkeypatch.setattr(
+        engine_mod.distance_pallas, "min_sum_matrix_pallas", broken
     )
-    assert np.array_equal(result.hist, want)
-    # The planes attempt raised and the degraded run went through the
-    # packed program with pallas=None (the sticky jnp fallback — a
-    # Mosaic failure is not re-attempted mid-stream; batches 2+ use the
-    # unpatched acc variant).
-    assert calls["planes"] >= 1
-    assert calls["packed"] >= 1
+    monkeypatch.setenv("KMER_PALLAS_INTERPRET", "1")  # route the kernel
+    seqs = [make_dna(120) for _ in range(4)]
+    with pytest.raises(RuntimeError, match="Triton"):
+        KmerEngine(KmerConfig(k=3)).distance_sequences(seqs)
+
+
+def test_union_host_alloc_failure_degrades_and_is_counted(
+    make_dna, monkeypatch, rng
+):
+    # The one degrade left: a device route that cannot allocate falls back
+    # to the host two-pointer, exact, and is counted in runtime.DEGRADES.
+    from dna_kmeres_parallel.models import sparse_engine
+    from dna_kmeres_parallel.ops import runtime
+
+    def oom(*a, **kw):
+        raise RuntimeError("RESOURCE_EXHAUSTED: out of memory")
+
+    monkeypatch.setattr(sparse_engine, "union_dense_min_sums", oom)
+    monkeypatch.setattr(runtime, "DEGRADES", {})
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
+    genome = make_dna(1500)
+    seqs = [genome[s : s + 120] for s in rng.integers(0, 1300, size=6)]
+    info = {}
+    got = sparse_engine.distance_sparse_packed(seqs, 21, info=info)
+    assert info["route"] == "host/sparse"
+    assert runtime.DEGRADES == {"union": 1}
+    assert np.array_equal(got, oracle.distance_matrix_packed_sparse(seqs, 21))
 
 
 def test_cli_merge_and_histo(tmp_path, make_dna, monkeypatch):
@@ -82,8 +84,8 @@ def test_cli_merge_and_histo(tmp_path, make_dna, monkeypatch):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models import oracle as oracle_mod
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.models import oracle as oracle_mod
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     seqs_a = [make_dna(200) for _ in range(3)]
     seqs_b = [make_dna(150) for _ in range(2)]
@@ -93,11 +95,10 @@ def test_cli_merge_and_histo(tmp_path, make_dna, monkeypatch):
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["KMER_TPU_PLATFORM"] = "cpu"
 
     def run(*argv):
         r = subprocess.run(
-            [sys.executable, "-m", "dna_kmeres_parallel_tpu.cli", *argv],
+            [sys.executable, "-m", "dna_kmeres_parallel.cli", *argv],
             capture_output=True, text=True, env=env, timeout=300,
         )
         assert r.returncode == 0, r.stdout + r.stderr
@@ -145,19 +146,18 @@ def test_cli_histo_multi_npz_and_oracle(tmp_path, make_dna):
     import subprocess
     import sys
 
-    from dna_kmeres_parallel_tpu.models import oracle as oracle_mod
-    from dna_kmeres_parallel_tpu.utils import fasta as fasta_mod
+    from dna_kmeres_parallel.models import oracle as oracle_mod
+    from dna_kmeres_parallel.utils import fasta as fasta_mod
 
     seqs = [make_dna(180) for _ in range(3)]
     pa = tmp_path / "h.fasta"
     fasta_mod.write_fasta(pa, [(f">h{i}", s) for i, s in enumerate(seqs)])
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["KMER_TPU_PLATFORM"] = "cpu"
 
     def run(*argv, expect_rc=0):
         r = subprocess.run(
-            [sys.executable, "-m", "dna_kmeres_parallel_tpu.cli", *argv],
+            [sys.executable, "-m", "dna_kmeres_parallel.cli", *argv],
             capture_output=True, text=True, env=env, timeout=300,
         )
         assert r.returncode == expect_rc, r.stdout + r.stderr
@@ -181,9 +181,9 @@ def test_cli_histo_multi_npz_and_oracle(tmp_path, make_dna):
 def test_cli_query_and_min_count(tmp_path, make_dna, capsys):
     import json
 
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.utils import fasta
 
     seqs = [make_dna(120) for _ in range(3)]
     path = tmp_path / "q.fasta"
@@ -231,8 +231,8 @@ def test_cli_min_count_dense_npz(tmp_path, make_dna, capsys):
 
     import numpy as np
 
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.utils import fasta
 
     s = make_dna(50)
     path = tmp_path / "d.fasta"
@@ -252,9 +252,9 @@ def test_cli_min_count_dense_npz(tmp_path, make_dna, capsys):
 def test_cli_merge_set_ops(tmp_path, make_dna, capsys):
     import json
 
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.utils import fasta
 
     a, b = make_dna(150), make_dna(150)
     shared = make_dna(60)
@@ -295,8 +295,8 @@ def test_cli_merge_set_ops_empty_right(tmp_path, make_dna, capsys):
     """Set ops against an EMPTY table: intersect -> empty, subtract -> A."""
     import json
 
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.utils import fasta
 
     pa = tmp_path / "a.fasta"
     fasta.write_fasta(pa, [(">a", make_dna(100))])
@@ -320,9 +320,9 @@ def test_cli_oracle_npz_output(tmp_path, make_dna, capsys):
     regression: it silently wrote CSV bytes under the .npz name)."""
     import numpy as np
 
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.models import oracle
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.models import oracle
+    from dna_kmeres_parallel.utils import fasta
 
     s = make_dna(120)
     path = tmp_path / "o.fasta"
@@ -341,8 +341,8 @@ def test_cli_oracle_npz_output(tmp_path, make_dna, capsys):
 def test_cli_histo_native_engine(tmp_path, make_dna, capsys):
     import json
 
-    from dna_kmeres_parallel_tpu import cli, native
-    from dna_kmeres_parallel_tpu.utils import fasta
+    from dna_kmeres_parallel import cli, native
+    from dna_kmeres_parallel.utils import fasta
 
     if not native.available():
         import pytest

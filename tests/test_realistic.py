@@ -12,9 +12,9 @@ checked-in generator instead of an unshippable corpus.
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.utils import codec, datagen, fasta
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.utils import codec, datagen, fasta
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +42,7 @@ def test_fixture_has_realistic_features(realistic):
 
 
 def test_dense_k4_realistic_matches_oracle(realistic):
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
+    from dna_kmeres_parallel.models.engine import KmerEngine
 
     path, seqs = realistic
     res = KmerEngine(KmerConfig(k=4)).count_file(path)
@@ -53,8 +53,8 @@ def test_dense_k4_realistic_matches_oracle(realistic):
 
 
 def test_sparse_k21_stream_auto_realistic(realistic):
-    from dna_kmeres_parallel_tpu import native
-    from dna_kmeres_parallel_tpu.models.pipeline import StreamingCounter
+    from dna_kmeres_parallel import native
+    from dna_kmeres_parallel.models.pipeline import StreamingCounter
 
     path, seqs = realistic
     sc = StreamingCounter(KmerConfig(k=21, batch_bases=4096, compact="auto"))
@@ -70,8 +70,8 @@ def test_bucketed_k31_minimizer_skew_realistic(realistic):
     # The planted repeat concentrates minimizers on few owners — the auto
     # policy must absorb the skew (raw overflow -> aggregated fallback is
     # its designed degradation) and stay exact.
-    from dna_kmeres_parallel_tpu.parallel import bucketed
-    from dna_kmeres_parallel_tpu.parallel.mesh import make_mesh
+    from dna_kmeres_parallel.parallel import bucketed
+    from dna_kmeres_parallel.parallel.mesh import make_mesh
 
     path, seqs = realistic
     mesh = make_mesh(8)
@@ -87,7 +87,7 @@ def test_bucketed_k31_minimizer_skew_realistic(realistic):
 
 
 def test_distance_k3_realistic_matches_oracle(realistic):
-    from dna_kmeres_parallel_tpu.models.engine import KmerEngine
+    from dna_kmeres_parallel.models.engine import KmerEngine
 
     path, seqs = realistic
     sub = seqs[:24]
@@ -97,7 +97,7 @@ def test_distance_k3_realistic_matches_oracle(realistic):
 
 
 def test_sparse_distance_k17_realistic_matches_oracle(realistic):
-    from dna_kmeres_parallel_tpu.models import sparse_engine
+    from dna_kmeres_parallel.models import sparse_engine
 
     _, seqs = realistic
     sub = seqs[:12]

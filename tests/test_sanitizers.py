@@ -5,9 +5,9 @@ import jax
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle
-from dna_kmeres_parallel_tpu.models.engine import KmerEngine
-from dna_kmeres_parallel_tpu.utils.config import KmerConfig
+from dna_kmeres_parallel.models import oracle
+from dna_kmeres_parallel.models.engine import KmerEngine
+from dna_kmeres_parallel.utils.config import KmerConfig
 
 
 @pytest.fixture

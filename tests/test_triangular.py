@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from dna_kmeres_parallel_tpu.utils import triangular as tri
+from dna_kmeres_parallel.utils import triangular as tri
 
 
 def test_matches_reference_formula():

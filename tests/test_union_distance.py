@@ -1,4 +1,4 @@
-"""Union-indexed dense distance route (r4 continuation).
+"""Union-indexed dense distance route.
 
 The k >= 12 distance regime has no dense [S, 4^k] matrix, but the
 pairwise min-sum only touches codes that OCCUR: re-indexing the
@@ -14,7 +14,7 @@ import json
 import numpy as np
 import pytest
 
-from dna_kmeres_parallel_tpu.models import oracle, sparse_engine
+from dna_kmeres_parallel.models import oracle, sparse_engine
 
 
 def _reads(rng, genome: str, n_reads: int, read_len: int) -> list[str]:
@@ -30,12 +30,12 @@ def shared_reads(rng, make_dna):
     return _reads(rng, genome, 12, 150)
 
 
-@pytest.mark.parametrize("impl", ["jnp", "mxu", "pallas"])
+@pytest.mark.parametrize("impl", ["jnp", "int8", "pallas"])
 def test_union_route_exact_k21(shared_reads, monkeypatch, impl):
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
-    monkeypatch.setenv("KMER_TPU_UNION_IMPL", impl)
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_UNION_IMPL", impl)
     if impl == "pallas":
-        monkeypatch.setenv("KMER_TPU_PALLAS_INTERPRET", "1")
+        monkeypatch.setenv("KMER_PALLAS_INTERPRET", "1")
     info = {}
     got = sparse_engine.distance_sparse_packed(
         shared_reads, 21, info=info
@@ -47,7 +47,7 @@ def test_union_route_exact_k21(shared_reads, monkeypatch, impl):
 
 
 def test_union_route_exact_canonical(shared_reads, monkeypatch):
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     info = {}
     got = sparse_engine.distance_sparse_packed(
         shared_reads, 19, canonical=True, info=info
@@ -62,7 +62,7 @@ def test_union_route_exact_canonical(shared_reads, monkeypatch):
 def test_union_route_exact_midk(shared_reads, monkeypatch):
     # k=13 lives in the sparse regime (dense never feasible); the union
     # route must reproduce the sparse oracle bit-for-bit there too.
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     got = sparse_engine.distance_sparse_packed(shared_reads, 13)
     want = oracle.distance_matrix_packed_sparse(shared_reads, 13)
     assert np.array_equal(got, want)
@@ -73,7 +73,7 @@ def test_union_route_with_invalid_bases_and_varied_lengths(
 ):
     # Sequences with N runs (dropped windows) and unequal lengths: the
     # union matrix rows carry different totals; finish uses min(L)-k+1.
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     genome = make_dna(1500, invalid_frac=0.03)
     seqs = [
         genome[s : s + 120 + 17 * i]
@@ -90,35 +90,35 @@ def test_union_route_with_short_sequences(rng, make_dna, monkeypatch):
     # A sequence shorter than k has an EMPTY table (zero windows): the
     # union matrix row is all zeros and its distances match the host
     # path bit-for-bit (including the shared <=0-denominator finish).
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     genome = make_dna(1200)
     seqs = _reads(rng, genome, 6, 130) + ["ACGTACGT"]  # < k=17
     info = {}
     got = sparse_engine.distance_sparse_packed(seqs, 17, info=info)
     assert info["route"].startswith("union/")
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "0")
+    monkeypatch.setenv("KMER_DIST_UNION", "0")
     want = sparse_engine.distance_sparse_packed(seqs, 17)
     assert np.array_equal(got, want)
 
 
 def test_union_plan_gates(rng, make_dna, monkeypatch):
-    from dna_kmeres_parallel_tpu import native
+    from dna_kmeres_parallel import native
 
     genome = make_dna(2000)
     seqs = _reads(rng, genome, 10, 150)
     codes, cnts, offs = sparse_engine.build_pair_tables(seqs, 21)
 
     # Auto mode on a CPU host with the native two-pointer: stays host.
-    monkeypatch.delenv("KMER_TPU_DIST_UNION", raising=False)
+    monkeypatch.delenv("KMER_DIST_UNION", raising=False)
     if native.available():
         assert sparse_engine.union_dense_plan(codes, cnts, offs) is None
 
-    # Forced: plan exists; low-multiplicity read tables pick the MXU
-    # sub-route (cmax is tiny, one int8 matmul per threshold).
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    # Forced: plan exists; low-multiplicity read tables pick the int8
+    # threshold sub-route (cmax is tiny, one int8 matmul per threshold).
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     plan = sparse_engine.union_dense_plan(codes, cnts, offs)
     assert plan is not None
-    assert plan["impl"] == "mxu"
+    assert plan["impl"] == "int8"
     assert plan["D"] == np.unique(codes).shape[0]
     # Bucketed shapes: powers of two, >= the real extents.
     assert plan["Dp"] >= plan["D"] and plan["Dp"] & (plan["Dp"] - 1) == 0
@@ -127,11 +127,11 @@ def test_union_plan_gates(rng, make_dna, monkeypatch):
     assert plan["cmax"] >= int(cnts.max())
 
     # Disabled wins over forced-consideration defaults.
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "0")
+    monkeypatch.setenv("KMER_DIST_UNION", "0")
     assert sparse_engine.union_dense_plan(codes, cnts, offs) is None
 
     # The memory budget is a hard ceiling even when forced.
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     assert (
         sparse_engine.union_dense_plan(
             codes, cnts, offs, budget_bytes=1024
@@ -146,42 +146,66 @@ def test_union_plan_gates(rng, make_dna, monkeypatch):
         sparse_engine.union_dense_plan(codes, big_cnts, offs) is None
     )
 
-    # cmax past the MXU unroll ceiling drops the MXU candidate.
+    # cmax past the int8 unroll ceiling drops the int8 candidate.
     big_cnts = cnts.copy()
     big_cnts[:] = np.maximum(big_cnts, 1)
     big_cnts[0] = 1000
     plan = sparse_engine.union_dense_plan(codes, big_cnts, offs)
-    assert plan is not None and plan["impl"] != "mxu"
+    assert plan is not None and plan["impl"] != "int8"
 
-    # The engine's MXU env knobs reach the union sub-route selection:
-    # DIST_MXU=0 disables the matmul chain, MXU_CMAX caps its unroll.
-    monkeypatch.setenv("KMER_TPU_DIST_MXU", "0")
+    # The engine's int8 env knobs reach the union sub-route selection:
+    # DIST_INT8=0 disables the matmul chain, INT8_CMAX caps its unroll.
+    monkeypatch.setenv("KMER_DIST_INT8", "0")
     plan = sparse_engine.union_dense_plan(codes, cnts, offs)
-    assert plan is not None and plan["impl"] != "mxu"
-    monkeypatch.delenv("KMER_TPU_DIST_MXU", raising=False)
+    assert plan is not None and plan["impl"] != "int8"
+    monkeypatch.delenv("KMER_DIST_INT8", raising=False)
     cap_cnts = cnts.copy()
     cap_cnts[0] = 8
-    monkeypatch.setenv("KMER_TPU_MXU_CMAX", "4")
+    monkeypatch.setenv("KMER_INT8_CMAX", "4")
     plan = sparse_engine.union_dense_plan(codes, cap_cnts, offs)
-    assert plan is not None and plan["impl"] != "mxu"
-    monkeypatch.delenv("KMER_TPU_MXU_CMAX", raising=False)
+    assert plan is not None and plan["impl"] != "int8"
+    monkeypatch.delenv("KMER_INT8_CMAX", raising=False)
 
 
-def test_union_auto_prefers_device_on_tpu_for_shared_reads(
-    rng, make_dna, monkeypatch
+def test_union_auto_prefers_device_on_accelerator_for_shared_reads(
+    rng, make_dna, monkeypatch, tmp_path
 ):
-    # Simulate a real TPU backend: auto routing must take the union
-    # route for a big high-sharing job and keep a tiny job on the host
-    # (the fixed dispatch overhead dominates there).
-    from dna_kmeres_parallel_tpu.ops import runtime
+    # On an accelerator, auto routing must take the union route for a big
+    # high-sharing job and keep a tiny job on the host (the fixed dispatch
+    # overhead dominates there). The host side of the cost model — thread
+    # count and per-thread rate — and the link are injected, so the
+    # decision does not depend on the machine running the test.
+    import json as _json
 
-    monkeypatch.delenv("KMER_TPU_DIST_UNION", raising=False)
-    monkeypatch.setattr(runtime, "pallas_mode", lambda: "compiled")
+    from dna_kmeres_parallel.ops import calibrate, runtime
+
+    cal = tmp_path / "cal.json"
+    cal.write_text(
+        _json.dumps(
+            {
+                "h2d_bps": 2e10,
+                "d2h_bps": 2e10,
+                "roundtrip_s": 1e-4,
+                "sparse_entry_pairs_per_sec_per_thread": 3.6e8,
+            }
+        )
+    )
+    monkeypatch.setenv("KMER_CALIBRATION_FILE", str(cal))
+    calibrate.reset()
+    monkeypatch.delenv("KMER_DIST_UNION", raising=False)
+    monkeypatch.setattr(
+        runtime,
+        "backend",
+        lambda: runtime.Backend("gpu", "test accelerator", "compiled"),
+    )
     genome = make_dna(2000)
     seqs = _reads(rng, genome, 10, 150)
     codes, cnts, offs = sparse_engine.build_pair_tables(seqs, 21)
     # Tiny job (45 pairs): host.
-    assert sparse_engine.union_dense_plan(codes, cnts, offs) is None
+    assert (
+        sparse_engine.union_dense_plan(codes, cnts, offs, host_threads=16)
+        is None
+    )
     # Same tables replicated to S=1280 (819K pairs): device. Codes are
     # per-sequence sorted within each segment, as build_pair_tables
     # produces them.
@@ -192,15 +216,18 @@ def test_union_auto_prefers_device_on_tpu_for_shared_reads(
     )
     big_codes = np.tile(codes, reps)
     big_cnts = np.tile(cnts, reps)
-    plan = sparse_engine.union_dense_plan(big_codes, big_cnts, big_offs)
+    plan = sparse_engine.union_dense_plan(
+        big_codes, big_cnts, big_offs, host_threads=16
+    )
     assert plan is not None
+    calibrate.reset()
 
 
 def test_cli_distance_union_route(tmp_path, rng, make_dna, monkeypatch, capsys):
-    from dna_kmeres_parallel_tpu import cli
-    from dna_kmeres_parallel_tpu.utils import io as io_mod
+    from dna_kmeres_parallel import cli
+    from dna_kmeres_parallel.utils import io as io_mod
 
-    monkeypatch.setenv("KMER_TPU_DIST_UNION", "1")
+    monkeypatch.setenv("KMER_DIST_UNION", "1")
     genome = make_dna(1800)
     seqs = _reads(rng, genome, 9, 140)
     fa = tmp_path / "u.fasta"
